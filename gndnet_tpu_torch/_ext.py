@@ -37,6 +37,10 @@ SIGNATURES = {
     "cell_histogram_i32": ("cell_histogram", [_P, _P, _I, _I, _I, _P]),
     "affine_scan_gather": ("affine_scan", [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _I, _I, _I, _P]),
+    "affine_scan_argmax": ("affine_scan", [_P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _I, _I, _P]),
+    "affine_bwd_dmmat": ("affine_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _P]),
 }
 
 _lock = threading.Lock()

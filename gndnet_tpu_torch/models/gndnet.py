@@ -6,10 +6,12 @@ the reference's parameter names (`voxel_feature_extractor.*`,
 `encoder_decoder.*`), so a reference state dict, or
 `weights.state_dict_from_flax` of JAX variables, loads unchanged.
 
-Output is (B, ny, nx) float32 elevation with B = 1.
+Output is (B, ny, nx) float32 elevation, B >= 1.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -26,9 +28,10 @@ def compute_dtype(cfg: GndNetConfig) -> torch.dtype:
 
 
 class GroundEstimatorNet(nn.Module):
-    """Eval-mode model on `device` (the card unless device='cpu').  Its
-    initial weights are PyTorch's default init drawn from seed 0 in a
-    forked RNG (the global RNG is left as it was); serving loads a state
+    """The model on `device` (the card unless device='cpu'), in eval mode:
+    `fused(train=True)` selects batch statistics itself.  Its initial
+    weights are PyTorch's default init drawn from seed 0 in a forked RNG
+    (the global RNG is left as it was); serving and training load a state
     dict over them."""
 
     def __init__(self, cfg: GndNetConfig, device=None):
@@ -48,7 +51,8 @@ class GroundEstimatorNet(nn.Module):
 
     def canvas(self, points: torch.Tensor,
                reference: bool = False) -> torch.Tensor:
-        """(1, N, F) raw points -> (1, ny, nx, C) post-PFN canvas.
+        """(B, N, F) raw points -> (B, ny, nx, C) post-PFN canvas,
+        differentiable in the PFN parameters when autograd records.
         `reference=True` takes the plain version of every kernel stage."""
         cfg = self.cfg
         if len(cfg.vfe_filters) != 1:
@@ -59,26 +63,28 @@ class GroundEstimatorNet(nn.Module):
                 "others are ROADMAP.md queue 1, 'The other forward paths'")
         points = torch.as_tensor(points, dtype=torch.float32,
                                  device=self.device)
-        if points.shape[0] != 1:
-            raise NotImplementedError(
-                "fused() serves one scan: batched inference (B>1) is "
-                "ROADMAP.md queue 1, 'Batched inference, B>1'")
         ctx = pz.bin_points_batch(points, self.geom)
         kernel, bias = (self.voxel_feature_extractor.pfn_layers[0]
                         .effective_affine())
         return pz.affine_canvas(
-            points[0], ctx, self.geom, cfg.max_points_voxel, kernel, bias,
+            points.reshape(-1, points.shape[-1]), ctx, self.geom,
+            cfg.max_points_voxel, kernel, bias,
             with_distance=cfg.with_distance,
             exact_point_cap=cfg.exact_point_cap,
             compute_dtype=compute_dtype(cfg), reference=reference)
 
-    @torch.no_grad()
     def fused(self, points: torch.Tensor, train: bool = False,
               reference: bool = False) -> torch.Tensor:
-        """(1, N, F) raw points -> (1, ny, nx) float32 elevation."""
-        if train:
+        """(B, N, F) raw points -> (B, ny, nx) float32 elevation.
+
+        train=False serves under `torch.no_grad()` (the canvas takes K2);
+        train=True records the graph for the PFN and SegNet parameters
+        (the canvas takes K4/K5, whose backward is K6) and runs batch norm
+        on batch statistics, updating the running ones."""
+        if train and self.cfg.use_norm:
             raise NotImplementedError(
-                "training is ROADMAP.md queue 1, 'Training' (with kernels "
-                "K4-K6 of queue 2)")
-        canvas = self.canvas(points, reference=reference)
-        return self.encoder_decoder(canvas)[..., 0]
+                "use_norm training (the PFN's batch-statistics BN) is "
+                "ROADMAP.md queue 1, 'use_norm training'")
+        with contextlib.nullcontext() if train else torch.no_grad():
+            canvas = self.canvas(points, reference=reference)
+            return self.encoder_decoder(canvas, train=train)[..., 0]

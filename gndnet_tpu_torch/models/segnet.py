@@ -10,7 +10,13 @@ Convs run in `dtype` (bfloat16 or float32) with float32 parameters; batch
 norm runs in float32 (eps 1e-5), as in the JAX package.  The convs are
 PyTorch's (cuDNN on the card), as the JAX package left them to XLA.  With
 float32 convs and precision 'highest' on the card, TF32 is switched off for
-the convs (cuDNN's default would use it).
+the convs (cuDNN's default would use it); a train step keeps it off through
+its backward as well (`no_tf32`).
+
+`forward(canvas, train)` takes flax's `train` flag, not the module's
+training mode: with train=True batch norm normalises with the batch's
+statistics and updates its running statistics as flax does (momentum 0.9,
+the BIASED batch variance; `nn.BatchNorm2d` would store the unbiased one).
 """
 
 from __future__ import annotations
@@ -24,22 +30,44 @@ from torch import nn
 from gndnet_tpu_torch.ops.pooling import max_pool_argmax, max_unpool
 
 
+FLAX_BN_MOMENTUM = 0.9   # running = 0.9 * running + 0.1 * batch
+
+
 @contextlib.contextmanager
-def _no_tf32(on: bool):
+def no_tf32(on: bool):
+    """Full-f32 convs and matmuls inside the block when `on`."""
     if not on:
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype):
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     padding=1)
+
+
+def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool):
+    """flax `nn.BatchNorm` on NCHW float32: running statistics in eval;
+    batch statistics in train, with the running update of flax."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        keep = FLAX_BN_MOMENTUM
+        bn.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+        bn.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        bn.num_batches_tracked.add_(1)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
 class ConvBNRelu(nn.Module):
@@ -55,9 +83,10 @@ class ConvBNRelu(nn.Module):
             nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
             nn.ReLU())
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         conv, bn, relu = self.cbr_unit
-        return relu(bn(_conv(conv, x, self.dtype).float()))
+        return relu(_batch_norm(bn, _conv(conv, x, self.dtype).float(),
+                                train))
 
 
 class SegnetDown2(nn.Module):
@@ -67,8 +96,8 @@ class SegnetDown2(nn.Module):
         self.conv1 = ConvBNRelu(in_channels, out_channels, dtype)
         self.conv2 = ConvBNRelu(out_channels, out_channels, dtype)
 
-    def forward(self, x):
-        x = self.conv2(self.conv1(x))
+    def forward(self, x, train: bool = False):
+        x = self.conv2(self.conv1(x, train), train)
         unpooled_hw = tuple(x.shape[-2:])
         pooled, idx = max_pool_argmax(x)
         return pooled, idx, unpooled_hw
@@ -84,8 +113,9 @@ class SegnetUp2(nn.Module):
         self.conv1 = ConvBNRelu(in_channels, in_channels, dtype)
         self.conv2 = ConvBNRelu(in_channels, out_channels, dtype)
 
-    def forward(self, x, idx, out_hw):
-        return self.conv2(self.conv1(max_unpool(x, idx, out_hw)))
+    def forward(self, x, idx, out_hw, train: bool = False):
+        return self.conv2(self.conv1(max_unpool(x, idx, out_hw), train),
+                          train)
 
 
 class SegnetGndEst(nn.Module):
@@ -104,15 +134,20 @@ class SegnetGndEst(nn.Module):
         self.up1 = SegnetUp2(128, 64, dtype)
         self.regressor = nn.Conv2d(64, 1, 3, padding=1, bias=True)
 
-    def forward(self, canvas: torch.Tensor) -> torch.Tensor:
+    def full_f32(self, device: torch.device) -> bool:
+        """Whether TF32 must be off: float32 convs at 'highest' on the
+        card."""
+        return (self.precision == "highest" and self.dtype == torch.float32
+                and device.type == "cuda")
+
+    def forward(self, canvas: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         """canvas (B, ny, nx, C) -> (B, ny, nx, 1) float32."""
-        full_f32 = (self.precision == "highest"
-                    and self.dtype == torch.float32 and canvas.is_cuda)
-        with _no_tf32(full_f32):
+        with no_tf32(self.full_f32(canvas.device)):
             x = canvas.permute(0, 3, 1, 2)
-            down1, idx1, hw1 = self.down1(x)
-            down2, idx2, hw2 = self.down2(down1)
-            up2 = self.up2(down2, idx2, hw2)
-            up1 = self.up1(up2, idx1, hw1)
+            down1, idx1, hw1 = self.down1(x, train)
+            down2, idx2, hw2 = self.down2(down1, train)
+            up2 = self.up2(down2, idx2, hw2, train)
+            up1 = self.up1(up2, idx1, hw1, train)
             pred = _conv(self.regressor, up1, self.dtype)
         return pred.float().permute(0, 2, 3, 1)

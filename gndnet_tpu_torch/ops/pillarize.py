@@ -2,13 +2,16 @@
 
 Counterparts of `gndnet_tpu.ops.pillarize`: `PillarGeometry`,
 `PointContext`, `_bin`, `bin_points`, `bin_points_batch`,
-`affine_pfn_weights` and the B=1 packed-key branch of `affine_canvas`.
+`affine_pfn_weights` and the packed-key branches of `affine_canvas`.
 
-`affine_canvas` turns one raw scan into the post-PFN pseudo-image without
+`affine_canvas` turns raw scans into the post-PFN pseudo-image without
 building the (pillars, points) tensor: sort one packed (cell, index) key per
-point (K1), gather the rows in cell order, count each cell's points (K3),
-take each cell's capped PFN max and xyz sums in stream order (K2), and add
-the per-cell offset of the affine PFN split in a plain epilogue.
+point and item (K1 at B=1, a batched `torch.sort` at B>1, as the JAX
+package leaves it to `lax.sort`), gather the rows in cell order, count each
+cell's points (K3), take each cell's capped PFN max and xyz sums in stream
+order (K2 when serving; K4/K5 with K6 as their backward when autograd
+records a gradient), and add the per-cell offset of the affine PFN split in
+a plain epilogue.
 """
 
 from __future__ import annotations
@@ -129,79 +132,95 @@ def affine_pfn_weights(kernel: torch.Tensor, bias: torch.Tensor,
     return m, w_clu, w_cen, bias
 
 
-def affine_canvas(points: torch.Tensor, ctx: PointContext,
-                  geom: PillarGeometry, max_points: int,
-                  kernel: torch.Tensor, bias: torch.Tensor, *,
-                  with_distance: bool = False, exact_point_cap: bool = True,
-                  compute_dtype: torch.dtype = torch.float32,
-                  reference: bool = False) -> torch.Tensor:
-    """One raw scan (N, F) float32 -> (1, ny, nx, C) canvas in
-    compute_dtype.
-
-    Reproduces `gndnet_tpu.ops.pillarize.affine_canvas` for B=1 with the
-    packed key: the kept set is each cell's first `max_points` points in
-    scan order (all of them without `exact_point_cap`), a cell's canvas
-    row is relu(max over kept points of p_aug @ M + w(cell)), floored at
-    relu(bias) when the cell holds fewer than `max_points` points (the
-    reference's zero padding rows) and zero for an empty cell.
-
-    `reference=True` runs the plain PyTorch version of every kernel stage
-    on whatever device the points are on: the card-side oracle of K1-K3.
-    """
-    if geom.nz != 1:
-        raise ValueError("affine canvas requires nz == 1")
-    if ctx.batch != 1:
-        raise NotImplementedError(
-            "affine_canvas takes one scan: batched inference (B>1) is "
-            "ROADMAP.md queue 1, 'Batched inference, B>1'")
-    n = points.shape[0]
+def cell_stream(points: torch.Tensor, ctx: PointContext,
+                geom: PillarGeometry, *, reference: bool = False):
+    """The cell-sorted stream of B scans: (spts (B*N, F) rows sorted by
+    (item, cell, scan index), starts and counts (B * num_cells_3d,) int32
+    of every cell's run in it).  Dropped points sort after their item's
+    cells.  K1 sorts at B=1, a batched `torch.sort` at B>1; K3 counts.
+    `reference=True` takes the plain versions."""
+    b = ctx.batch
+    m, f = points.shape
+    n = m // b
     c3 = geom.num_cells_3d
     idxcap = 1 << max(n - 1, 1).bit_length()
     if c3 * idxcap + (n - 1) >= 2**31:
         raise NotImplementedError(
             f"the packed (cell, index) key of {c3} cells x {n} points "
             "overflows 31 bits: grids such as fine_grid are ROADMAP.md "
-            "queue 1, 'Batched inference, B>1' (the unpacked fallback)")
-    if reference:
-        sort_fn = sort.sort_i32_plain
-        counts_fn = affine.histogram_counts_plain
-        scan_fn = affine.affine_scan_gather_plain
+            "queue 1, 'The fine_grid fallback' (the unpacked sort)")
+    sort_fn = sort.sort_i32_plain if reference else sort.sort_i32
+    counts_fn = (affine.histogram_counts_plain if reference
+                 else affine.histogram_counts)
+    # one unique key per point and item: cell-major, scan order within a
+    # cell, so the sort is deterministic and each run lists its points in
+    # order; every item has its own cell space [0, c3] (c3: its drop id)
+    dev = points.device
+    item = torch.arange(b, dtype=torch.int32, device=dev)
+    local = torch.where(ctx.valid, ctx.cell - item.repeat_interleave(n) * c3,
+                        c3).reshape(b, n)
+    key = (local * idxcap
+           + torch.arange(n, dtype=torch.int32, device=dev)).to(torch.int32)
+    if b == 1:
+        skey = sort_fn(key[0])[None]
     else:
-        sort_fn = sort.sort_i32
-        counts_fn = affine.histogram_counts
-        scan_fn = affine.affine_scan_gather
+        skey = torch.sort(key, dim=-1).values
+    local_s = torch.div(skey, idxcap, rounding_mode="floor")
+    order = (skey - local_s * idxcap).long()
+    spts = points.reshape(b, n, f)[item.long()[:, None], order].reshape(m, f)
+    ends, counts = affine.histogram_ends(local_s, geom.ny, geom.nx,
+                                         counts_fn=counts_fn)
+    # global run starts in the flat (b * n) stream
+    starts = (ends - counts + 1 + item[:, None] * n).reshape(-1)
+    return spts, starts.contiguous(), counts.reshape(-1)
 
+
+def affine_canvas(points: torch.Tensor, ctx: PointContext,
+                  geom: PillarGeometry, max_points: int,
+                  kernel: torch.Tensor, bias: torch.Tensor, *,
+                  with_distance: bool = False, exact_point_cap: bool = True,
+                  compute_dtype: torch.dtype = torch.float32,
+                  reference: bool = False) -> torch.Tensor:
+    """Raw flat points (B*N, F) float32 of B scans -> (B, ny, nx, C) canvas
+    in compute_dtype.
+
+    Reproduces `gndnet_tpu.ops.pillarize.affine_canvas` with the packed
+    key: the kept set is each cell's first `max_points` points in scan order
+    (all of them without `exact_point_cap`), a cell's canvas row is
+    relu(max over kept points of p_aug @ M + w(cell)), floored at
+    relu(bias) when the cell holds fewer than `max_points` points (the
+    reference's zero padding rows) and zero for an empty cell.
+
+    Differentiable in `kernel` and `bias` when autograd records (the
+    `differentiable` path of the JAX function): the scan then runs
+    `affine.ScanGather`, whose backward gives mmat its gradient, and the
+    points get none.  `reference=True` runs the plain PyTorch version of
+    every kernel stage on whatever device the points are on: the card-side
+    oracle of the kernels.
+    """
+    if geom.nz != 1:
+        raise ValueError("affine canvas requires nz == 1")
+    b = ctx.batch
+    c3 = geom.num_cells_3d
     mmat, w_clu, w_cen, bias = affine_pfn_weights(
         kernel, bias, points.shape[1], geom, with_distance)
-
-    # one unique key per point: cell-major, scan order within a cell, so
-    # the sort is deterministic and each run lists its points in order
-    local = torch.where(ctx.valid, ctx.cell, c3)
-    key = local * idxcap + torch.arange(n, dtype=torch.int32,
-                                        device=points.device)
-    skey = sort_fn(key.to(torch.int32))
-    local_s = torch.div(skey, idxcap, rounding_mode="floor")
-    spts = points[(skey - local_s * idxcap).long()]
-
-    ends, counts = affine.histogram_ends(local_s[None], geom.ny, geom.nx,
-                                         counts_fn=counts_fn)
-    counts = counts[0]
-    starts = ends[0] - counts + 1
-
+    spts, starts, counts = cell_stream(points, ctx, geom,
+                                       reference=reference)
+    dev = points.device
     if with_distance:
         spts = torch.cat([spts, torch.linalg.vector_norm(
             spts[:, :3], dim=1, keepdim=True)], dim=1)
-    tot, smax = scan_fn(spts.contiguous(), starts.contiguous(), counts,
-                        mmat.float().contiguous(),
-                        max_points if exact_point_cap else None,
-                        compute_dtype)
+    tot, smax = affine.scan_gather(
+        spts.contiguous(), starts, counts,
+        mmat.float().contiguous(), max_points if exact_point_cap else None,
+        compute_dtype, reference=reference)
     count = torch.where(counts > 0, tot[:, 3], 0.0)
     mean = tot[:, :3] / torch.clamp(count, min=1.0)[:, None]
 
     # per-cell offset w = bias - mean @ W_clu - center @ W_cen, each product
     # of compute_dtype operands rounded to compute_dtype
     nx = geom.nx
-    cell_ids = torch.arange(c3, device=points.device)
+    cell_ids = torch.arange(b * c3, device=dev) % c3
     vx, vy = geom.voxel_size[0], geom.voxel_size[1]
     centers = torch.stack(
         [(cell_ids % nx).float() * vx + (vx / 2.0 + geom.pc_range[0]),
@@ -223,4 +242,4 @@ def affine_canvas(points: torch.Tensor, ctx: PointContext,
     canvas = torch.where(occupied[:, None], canvas,
                          torch.zeros((), dtype=compute_dtype,
                                      device=canvas.device))
-    return canvas.reshape(1, geom.ny, geom.nx, -1)
+    return canvas.reshape(b, geom.ny, geom.nx, -1)

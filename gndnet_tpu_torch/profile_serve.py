@@ -9,10 +9,10 @@ seed) and prints JSON lines:
     one stream: host-to-device copy, shift, canvas (binning, K1 sort, row
     gather, K3 counts, K2 scan, epilogue), SegNet, segmentation, and the
     device-to-host copy; plus the host-clock time of `infer()`;
-  * `kernels`: device time per kernel name over the profiled scans from
-    `torch.profiler`, and the device busy share of that window (kernel time
-    over wall time), or "not measured" when the profiler records no device
-    activity.
+  * `kernels`: device time per kernel name per scan over 10 profiled
+    scans from `torch.profiler`, device operations per scan, and the device
+    busy share of that window (kernel time over wall time), or "not
+    measured" when the profiler records no device activity.
 Needs a CUDA device; fails without one.
 """
 
@@ -64,33 +64,54 @@ def stage_times(engine, padded_scans) -> dict:
     return {k: v / len(padded_scans) for k, v in totals.items()}
 
 
-def kernel_times(engine, scans) -> dict:
+def kernel_times(fn, reps: int) -> dict:
+    """`torch.profiler` over `reps` calls of fn(): device time per kernel
+    name and per call, kernel launches per call, and the device busy share
+    of the window (kernel time over wall time), or "not measured" when the
+    profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for s in scans:
-            engine.infer(s)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
         dev = getattr(evt, "self_device_time_total", 0.0) or 0.0
         if dev > 0 and evt.device_type.name == "CUDA":
-            rows.append((evt.key, dev / 1e3 / len(scans), evt.count))
+            rows.append((evt.key, dev / 1e3 / reps, evt.count))
     rows.sort(key=lambda r: -r[1])
     if not rows:
         return {"device_busy_share": "not measured",
-                "per_scan_ms": "not measured"}
-    busy = sum(r[1] for r in rows) * len(scans)
-    return {"wall_ms_per_scan": wall_ms / len(scans),
-            "device_ms_per_scan": busy / len(scans),
+                "per_call_ms": "not measured"}
+    busy = sum(r[1] for r in rows) * reps
+    return {"wall_ms_per_call": wall_ms / reps,
+            "device_ms_per_call": busy / reps,
             "device_busy_share": busy / wall_ms,
-            "top": [{"kernel": k[:120], "ms_per_scan": ms,
-                     "calls_per_scan": c / len(scans)}
+            "device_ops_per_call": sum(r[2] for r in rows) / reps,
+            "top": [{"kernel": k[:120], "ms_per_call": ms,
+                     "calls_per_call": c / reps}
                     for k, ms, c in rows[:25]]}
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def write_lines(lines, out) -> None:
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    if out:
+        with open(out, "w") as f:
+            f.writelines(json.dumps(line) + "\n" for line in lines)
 
 
 def main() -> None:
@@ -101,10 +122,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     cfg = kitti_sem_config().replace(
         compute_dtype="bfloat16", matmul_precision="default",
         fused_impl="affine")
@@ -120,18 +138,16 @@ def main() -> None:
     padded = [torch.from_numpy(engine._prepare(s)[0]).pin_memory()
               for s in scans]
     stage_times(engine, padded[:3])                     # warm
+    profiled = iter(scans[:10])
     lines = [
         {"card": smi, "torch": torch.__version__, "scans": len(scans)},
         {"stages_ms": stage_times(engine, padded),
          "infer_ms_host_clock": infer_ms,
          "scans_per_s_host_clock": 1e3 / infer_ms},
-        {"kernels": kernel_times(engine, scans[:10])},
+        {"kernels": kernel_times(lambda: engine.infer(next(profiled)),
+                                 10)},
     ]
-    for line in lines:
-        print(json.dumps(line), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.writelines(json.dumps(line) + "\n" for line in lines)
+    write_lines(lines, args.out)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ Used by `chip_smoke.py` and `gndnet_tpu_torch.profile_serve` on hosts that
 have no recorded scans: a ground plane at -lidar_height (denser near the
 sensor, as a spinning lidar sees it), box obstacles, a dense patch whose
 cells hold more points than the per-cell cap, and points outside the
-pc_range box.
+pc_range box.  `synthetic_labelled_batch` adds what training needs: a
+sloped ground and its elevation at every cell, the label grid of the
+reference's gnd_labels.
 """
 
 from __future__ import annotations
@@ -43,3 +45,25 @@ def synthetic_scan(cfg, rng, n: int = 100_000) -> np.ndarray:
     pts[:, :3] = np.concatenate([g, b, d, o])
     pts[:, 3] = rng.uniform(0, 1, n)
     return pts[rng.permutation(n)]
+
+
+def synthetic_labelled_batch(cfg, rng, b: int, n: int = 100_000):
+    """(points (b, n, F) float32, labels (b, ny, nx) float32): scans of
+    `synthetic_scan`'s make whose ground is a random plane of slope up to
+    3% per axis around -lidar_height, lifted with everything above it;
+    labels[i, iy, ix] is that plane's height at the centre of cell (ix, iy)
+    (the grid of `grid_range` and voxel_size)."""
+    x0, y0 = cfg.grid_range[0], cfg.grid_range[1]
+    vx, vy = cfg.voxel_size[0], cfg.voxel_size[1]
+    cx = x0 + (np.arange(cfg.nx) + 0.5) * vx
+    cy = y0 + (np.arange(cfg.ny) + 0.5) * vy
+    points = np.empty((b, n, cfg.input_features), np.float32)
+    labels = np.empty((b, cfg.ny, cfg.nx), np.float32)
+    for i in range(b):
+        sx, sy = rng.uniform(-0.03, 0.03, 2)
+        scan = synthetic_scan(cfg, rng, n)
+        scan[:, 2] += sx * scan[:, 0] + sy * scan[:, 1]
+        points[i] = scan
+        labels[i] = (-cfg.lidar_height + sx * cx[None, :]
+                     + sy * cy[:, None])
+    return points, labels

@@ -16,6 +16,7 @@ import gndnet_tpu.config as jcfg
 from gndnet_tpu_torch import _ext, config as tcfg
 from gndnet_tpu_torch.infer import GroundInferenceEngine
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
+from gndnet_tpu_torch.train import create_train_state, train_and_evaluate
 from gndnet_tpu_torch.weights import init_state_dict
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -51,6 +52,8 @@ def test_importing_the_port_loads_no_jax():
                          check=True).stdout.split()
     assert "gndnet_tpu_torch.infer" in out
     assert "gndnet_tpu_torch.ops.affine" in out
+    assert "gndnet_tpu_torch.train" in out
+    assert "gndnet_tpu_torch.data.provider" in out
     assert [m for m in out if _is_jax_side(m)] == []
 
 
@@ -101,20 +104,27 @@ def test_default_device_is_the_card():
         GroundEstimatorNet(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_and_evaluate(cfg, epochs=0)
     assert _ext.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_out_of_slice_paths_raise_not_implemented():
+    """B=2 serving and training run; the 'scatter' impl and grids whose
+    packed key overflows 31 bits (fine_grid) still raise."""
     rng = np.random.default_rng(0)
     small = dict(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
                  grid_range=(0.0, -8.0, 16.0, 8.0), max_points_voxel=20)
     cfg = tcfg.GndNetConfig(fused_impl="affine", **small)
     net = GroundEstimatorNet(cfg, device="cpu")
     pts = torch.from_numpy(rng.uniform(0, 8, (2, 64, 4)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="B>1"):
-        net.fused(pts)
-    with pytest.raises(NotImplementedError, match="Training"):
-        net.fused(pts[:1], train=True)
+    assert net.fused(pts).shape == (2, cfg.ny, cfg.nx)
+    pred = net.fused(pts, train=True)
+    assert pred.shape == (2, cfg.ny, cfg.nx) and pred.requires_grad
+    pred.sum().backward()
+    assert all(p.grad is not None for p in net.parameters())
     with pytest.raises(NotImplementedError, match="other forward paths"):
         GroundEstimatorNet(cfg.replace(fused_impl="scatter"),
                            device="cpu").fused(pts[:1])
