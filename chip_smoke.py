@@ -23,7 +23,21 @@ Phases, each printing one JSON line:
      move; steps/s at B=2 and at B=16 (bench.py's train batch);
   7. train_parity: three float32 / 'highest' train steps with TF32 off,
      kernel path (K4, K6) against the plain path;
-  8. the kernels line, then the result line.
+  8. serve_sorted: the same serving with fused_impl='sorted': K7 must
+     launch 3 times per scan (after K7's kernel row in phase 3, held
+     against its plain version on the main path's inputs and edge cases)
+     and K1-K6 never;
+  9. serve_scatter: kitti_sem_config() exactly as shipped ('scatter',
+     float32, 'highest', TF32 off): no kernel launches;
+ 10. serve_fine_grid: fine_grid_config() as shipped (250x250), two scans
+     each through 'scatter' and 'sorted';
+ 11. parity_sorted: float32 / 'highest', the sorted kernel path against
+     its plain path, and sorted against scatter on the card;
+ 12. train_scatter: kitti_sem as shipped, B=2, three steps, with the PFN
+     plain and with use_norm's batch-statistics BN; no kernel launches;
+ 13. presets: camera, custom_local and fine_grid as shipped serve a scan
+     and take a B=2 train step with use_norm off and on;
+ 14. the kernels line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -39,9 +53,10 @@ import numpy as np
 import torch
 
 from gndnet_tpu_torch import _ext, train
-from gndnet_tpu_torch.config import kitti_sem_config
+from gndnet_tpu_torch.config import (camera_config, custom_local_config,
+                                     fine_grid_config, kitti_sem_config)
 from gndnet_tpu_torch.infer import GroundInferenceEngine
-from gndnet_tpu_torch.ops import affine, sort
+from gndnet_tpu_torch.ops import affine, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import _cell_indices
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
@@ -57,6 +72,14 @@ PFN_RTOL = 1e-5          # f32 PFN step from K6 vs plain
 # steps 2-3 carry K6's rounding through an untrained network: measured
 # 5.3e-5 on an H100 80GB HBM3 at 700 W
 TRAIN_LOSS_RTOL = 1e-3
+# the sorted impl's canvas against the scatter impl's, the JAX package's
+# own tolerance (tests/test_pillarize.py:277-279)
+IMPL_RTOL, IMPL_ATOL = 1e-4, 1e-5
+# their elevations: scatter sums with atomics in a varying order, so its
+# canvas lies a few 1e-6 from the sorted one, and the SegNet routes its
+# unpool by max-pool argmax, where a near-tied window can flip: measured
+# 1.45e-3 on an H100 80GB HBM3 at 700 W
+IMPL_ELEV_ATOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -348,7 +371,12 @@ def set_bn_stats(sd: dict, rng) -> None:
 
 COUNTERS = (sort.sort_i32, affine.histogram_counts,
             affine.affine_scan_gather, affine.affine_scan_argmax_pair,
-            affine.affine_scan_argmax_packed, affine.affine_bwd_dmmat)
+            affine.affine_scan_argmax_packed, affine.affine_bwd_dmmat,
+            segment.suffix_segment_reduce)
+K7 = segment.suffix_segment_reduce
+# the shipped configurations the later phases drive as they are written
+SHIPPED = {"kitti_sem": kitti_sem_config, "fine_grid": fine_grid_config,
+           "camera": camera_config, "custom_local": custom_local_config}
 
 
 def reset_launches() -> None:
@@ -371,14 +399,18 @@ def read_launches(launched, idle, path: str) -> dict:
     return counts
 
 
-def serve(cfg, sd, scans, device) -> dict:
+def serve(cfg, sd, scans, device, phase="serve", launched=COUNTERS[:3],
+          idle=COUNTERS[3:]) -> dict:
     engine = GroundInferenceEngine(cfg, sd, device=device)
     warm_s = engine.warmup()
     reset_launches()
     t0 = time.perf_counter()
     outs = [engine.infer(s) for s in scans]
     elapsed = time.perf_counter() - t0
-    launches = read_launches(COUNTERS[:3], COUNTERS[3:], "serve")
+    launches = read_launches(launched, idle, phase)
+    if cfg.fused_impl == "sorted":
+        require(K7.launches == 3 * len(scans),
+                f"K7 launched {K7.launches} times for {len(scans)} scans")
     for (elev, labels), scan in zip(outs, scans):
         require(elev.shape == (cfg.ny, cfg.nx) and np.isfinite(elev).all(),
                 "elevation finite and (ny, nx)")
@@ -386,7 +418,9 @@ def serve(cfg, sd, scans, device) -> dict:
                 and set(np.unique(labels)) <= {-1, 0, 1}, "labels in -1/0/1")
     n_lab = np.concatenate([lab for _, lab in outs])
     return {"launches": launches, "result": {
-        "phase": "serve", "scans": len(scans),
+        "phase": phase, "fused_impl": cfg.fused_impl,
+        "compute_dtype": cfg.compute_dtype, "grid": [cfg.ny, cfg.nx],
+        "scans": len(scans),
         "points_per_scan": int(scans[0].shape[0]),
         "warmup_s": warm_s, "seconds": elapsed,
         "scans_per_s": len(scans) / elapsed, "launches": launches,
@@ -554,6 +588,194 @@ def train_parity(cfg, sd, rng) -> dict:
         "step3_param_diff_of_scale": after, "launches": launches}}
 
 
+def sorted_path_inputs(engine, padded: torch.Tensor):
+    """The tensors the sorted main path hands K7 for one served scan: the
+    xyzk stream and its cell ids, and the masked PFN activations."""
+    model, cfg = engine.model, engine.cfg
+    pts = engine.device_points(padded)
+    ctx = pz.bin_points(pts, model.geom)
+    cap = cfg.max_points_voxel
+    stream = pz.sorted_stream(pts, ctx, model.geom, cap, cfg.exact_point_cap)
+    dec = pz.fused_frontend_sorted(pts, ctx, model.geom, cap,
+                                   with_distance=cfg.with_distance,
+                                   exact_point_cap=cfg.exact_point_cap,
+                                   reference=True)[0]
+    with torch.no_grad():
+        acts = model.voxel_feature_extractor.pfn_layers[0].activate_flat(dec)
+    return (stream.xyzk.contiguous(), stream.sorted_cell.contiguous(),
+            pz.masked_activations(acts, stream.kept))
+
+
+def k7_case(x, cell, op: str, what: str) -> float:
+    """K7 vs its plain version on one input: equal to the bit (the plain
+    version sums in the kernel's order; max is exact).  Returns the max
+    |err|."""
+    got = segment.suffix_segment_reduce(x, cell, op, 1)
+    torch.cuda.synchronize()
+    want = segment.suffix_segment_reduce_plain(x, cell, op, 1)
+    err = float((got.float() - want.float()).abs().max())
+    require(torch.equal(got, want), f"K7 {op} {what}: differs in "
+            f"{int((got != want).sum())} entries, max |err| {err}")
+    return err
+
+
+def check_segment(xyzk, cell, masked) -> dict:
+    """K7 at the sorted frontend's shapes (the (N, 64) activation max, the
+    (N, 4) xyzk sums forward and flipped with negated ids) and on edge
+    cases: one row, one cell throughout, a drop run over most tiles, N not
+    a multiple of the tile, bf16 max."""
+    n = cell.shape[0]
+    one = torch.zeros_like(cell)
+    drop = cell.clone()
+    drop[int(0.4 * n):] = int(cell.max()) + 1
+    odd = 70_001
+    fx, fc = torch.flip(xyzk, (0,)), torch.flip(-cell, (0,))
+    cases = [(masked, cell, "max", "kitti acts"),
+             (masked.bfloat16(), cell, "max", "kitti acts bf16"),
+             (xyzk, cell, "sum", "kitti xyzk"),
+             (fx, fc, "sum", "kitti xyzk flipped, negated ids"),
+             (masked[:1], cell[:1], "max", "one row"),
+             (xyzk[:1], cell[:1], "sum", "one row"),
+             (masked, one, "max", "one cell"), (xyzk, one, "sum", "one cell"),
+             (masked, drop, "max", "drop run"), (xyzk, drop, "sum", "drop run"),
+             (masked[:odd], cell[:odd], "max", f"N={odd}"),
+             (xyzk[:odd], cell[:odd], "sum", f"N={odd}")]
+    worst = max(k7_case(x.contiguous(), c.contiguous(), op, what)
+                for x, c, op, what in cases)
+    again = segment.suffix_segment_reduce(xyzk, cell, "sum", 1)
+    require(torch.equal(again, segment.suffix_segment_reduce(
+        xyzk, cell, "sum", 1)), "K7 sums differ between runs")
+    width = masked.shape[1]
+    sum_ms = time_ms(lambda: segment.suffix_segment_reduce(xyzk, cell,
+                                                           "sum"))
+    emit({"phase": "kernel_k7_sum", "shape": list(xyzk.shape),
+          "sum_ms": sum_ms, **bound(2 * 4 * xyzk.numel() + 4 * n,
+                                    xyzk.numel())})
+    return {"name": "suffix_segment_reduce", "max_abs_err": worst,
+            "ms": time_ms(lambda: segment.suffix_segment_reduce(
+                masked, cell, "max")),
+            "plain_ms": time_ms(lambda: segment.suffix_segment_reduce_plain(
+                masked, cell, "max"), reps=5, warm=1),
+            "library_ms": None, "shape": [n, width],
+            **bound(2 * 4 * n * width + 4 * n, n * width)}
+
+
+def parity_sorted(cfg, sd, scans, device) -> dict:
+    """f32 / 'highest', TF32 off: the sorted kernel path (K7) against its
+    plain path, and sorted against scatter, on the card."""
+    cfg32 = cfg.replace(compute_dtype="float32", matmul_precision="highest",
+                        fused_impl="sorted")
+    eng = GroundInferenceEngine(cfg32, sd, device=device)
+    eng_sc = GroundInferenceEngine(cfg32.replace(fused_impl="scatter"), sd,
+                                   device=device)
+    elev_tol = 1e-4
+    worst = {"canvas": 0.0, "elevation": 0.0,
+             "canvas_vs_scatter": 0.0, "elevation_vs_scatter": 0.0}
+    close, labels_apart = True, 0
+    for scan in scans:
+        padded = torch.from_numpy(eng._prepare(scan)[0])
+        pts = eng.device_points(padded)
+        with torch.no_grad():
+            ck = eng.model.canvas(pts[None])
+            cp = eng.model.canvas(pts[None], reference=True)
+            cs = eng_sc.model.canvas(pts[None])
+        (ek, lk), (ep, _) = eng.run(padded), eng.run(padded, reference=True)
+        es, ls = eng_sc.run(padded)
+        for name, d in (("canvas", ck - cp), ("elevation", ek - ep),
+                        ("canvas_vs_scatter", ck - cs),
+                        ("elevation_vs_scatter", ek - es)):
+            worst[name] = max(worst[name], float(d.abs().max()))
+        close &= bool(torch.allclose(ck, cs, rtol=IMPL_RTOL, atol=IMPL_ATOL))
+        labels_apart += int((lk != ls).sum())
+    result = {"phase": "parity_sorted", "scans": len(scans),
+              "canvas_atol": 1e-5, "elevation_atol": elev_tol,
+              "impl_canvas_rtol": IMPL_RTOL, "impl_canvas_atol": IMPL_ATOL,
+              "impl_elevation_atol": IMPL_ELEV_ATOL, "max_abs_diff": worst,
+              "canvas_sorted_close_to_scatter": close,
+              "labels_sorted_vs_scatter_differ": labels_apart}
+    emit(result)
+    require(worst["canvas"] <= 1e-5, f"sorted canvas kernel vs plain "
+                                     f"{worst['canvas']}")
+    require(worst["elevation"] <= elev_tol, f"sorted elevation kernel vs "
+                                            f"plain {worst['elevation']}")
+    require(close, "sorted vs scatter canvas outside rtol "
+                   f"{IMPL_RTOL} / atol {IMPL_ATOL}: {worst}")
+    require(worst["elevation_vs_scatter"] <= IMPL_ELEV_ATOL,
+            f"sorted vs scatter elevation {worst['elevation_vs_scatter']}")
+    return result
+
+
+def pfn_norm_state(state) -> dict:
+    norm = state.model.voxel_feature_extractor.pfn_layers[0].norm
+    return {k: v.detach().clone() for k, v in norm.state_dict().items()}
+
+
+def train_scatter(rng, device) -> dict:
+    """kitti_sem as shipped ('scatter', float32, 'highest'), B=2, three
+    steps with use_norm off and on: finite losses, every parameter moves,
+    under use_norm the PFN's running statistics move; no kernel launches."""
+    out = {"phase": "train_scatter"}
+    for use_norm in (False, True):
+        cfg = SHIPPED["kitti_sem"]().replace(use_norm=use_norm)
+        points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
+                                                  cfg.num_points)
+        state = train.create_train_state(
+            cfg, 100, state_dict=init_state_dict(cfg, seed=SEED),
+            device=device)
+        step = train.make_train_step(cfg)
+        before = params_of(state)
+        norm_before = pfn_norm_state(state) if use_norm else {}
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(step(state, points, labels)[1]) for _ in range(3)]
+        elapsed = time.perf_counter() - t0
+        launches = read_launches((), COUNTERS, "train_scatter")
+        require(all(np.isfinite(losses)), f"scatter losses {losses}")
+        moved = {k: bool((v != before[k]).any())
+                 for k, v in params_of(state).items()}
+        require(all(moved.values()), "parameters that did not move: "
+                f"{[k for k, v in moved.items() if not v]}")
+        if use_norm:
+            after = pfn_norm_state(state)
+            for key in ("running_mean", "running_var", "weight", "bias"):
+                require(not torch.equal(after[key], norm_before[key]),
+                        f"PFN norm.{key} did not move")
+        out[f"use_norm_{use_norm}"] = {
+            "losses": losses, "steps_per_s": 3 / elapsed,
+            "params_moved": len(moved)}
+    return {"launches": launches, "result": out}
+
+
+def presets(rng, device) -> dict:
+    """camera, custom_local and fine_grid as shipped: one served scan, one
+    B=2 train step with use_norm off and on."""
+    out = {"phase": "presets"}
+    reset_launches()
+    for name in ("camera", "custom_local", "fine_grid"):
+        cfg = SHIPPED[name]()
+        sd = init_state_dict(cfg, seed=SEED)
+        engine = GroundInferenceEngine(cfg, sd, device=device)
+        elev, _ = engine.infer(synthetic_scan(cfg, rng, cfg.num_points))
+        require(elev.shape == (cfg.ny, cfg.nx) and np.isfinite(elev).all(),
+                f"{name}: elevation finite and (ny, nx)")
+        losses = {}
+        for use_norm in (False, True):
+            c = cfg.replace(use_norm=use_norm)
+            state = train.create_train_state(
+                c, 10, state_dict=init_state_dict(c, seed=SEED),
+                device=device)
+            _, loss = train.make_train_step(c)(
+                state, *synthetic_labelled_batch(c, rng, TRAIN_BATCH,
+                                                 c.num_points))
+            losses[f"use_norm_{use_norm}"] = float(loss)
+        require(all(np.isfinite(list(losses.values()))),
+                f"{name}: train losses {losses}")
+        out[name] = {"grid": [cfg.ny, cfg.nx], "fused_impl": cfg.fused_impl,
+                     "elevation_mean": float(elev.mean()), **losses}
+    out["launches"] = read_launches((), COUNTERS, "presets")
+    return out
+
+
 REPLACES = {
     "bitonic_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
                          "gndnet_tpu_torch/csrc/bitonic_sort.cu"),
@@ -567,6 +789,8 @@ REPLACES = {
                                   "gndnet_tpu_torch/csrc/affine_scan.cu"),
     "affine_bwd_dmmat": ("gndnet_tpu/ops/pallas_affine.py:686",
                          "gndnet_tpu_torch/csrc/affine_bwd.cu"),
+    "suffix_segment_reduce": ("gndnet_tpu/ops/pallas_segment.py:117",
+                              "gndnet_tpu_torch/csrc/suffix_segment.cu"),
 }
 # kernel row -> (wrapper, the path whose run gives its `launches`)
 WRAPPER = {"bitonic_sort_i32": ("sort_i32", "serve"),
@@ -576,7 +800,9 @@ WRAPPER = {"bitonic_sort_i32": ("sort_i32", "serve"),
                                        "train_f32"),
            "affine_scan_argmax_packed": ("affine_scan_argmax_packed",
                                          "train"),
-           "affine_bwd_dmmat": ("affine_bwd_dmmat", "train")}
+           "affine_bwd_dmmat": ("affine_bwd_dmmat", "train"),
+           "suffix_segment_reduce": ("suffix_segment_reduce",
+                                     "serve_sorted")}
 
 
 def main() -> int:
@@ -604,7 +830,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-7 on `device`; returns the kernels line's entries."""
+    """Phases 3-13 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -623,6 +849,10 @@ def run(cfg, n_points: int, device) -> list:
     rows += [check_argmax(tpts, tstarts, tcounts, tmmat, cap, packed=False),
              check_argmax(tpts, tstarts, tcounts, tmmat, cap, packed=True),
              check_dmmat(tpts, tstarts, tcounts, tmmat, cap, rng)]
+    sorted_cfg = cfg.replace(fused_impl="sorted")
+    probe = GroundInferenceEngine(sorted_cfg, sd, device=device)
+    rows.append(check_segment(*sorted_path_inputs(
+        probe, torch.from_numpy(probe._prepare(scans[0])[0]))))
     for row in rows:
         emit({"phase": "kernel", "kernel_ms": row["ms"], **row})
 
@@ -637,6 +867,32 @@ def run(cfg, n_points: int, device) -> list:
     tparity = train_parity(cfg, sd, rng)
     paths["train_f32"] = tparity["launches"]
     emit(tparity["result"])
+
+    served = serve(sorted_cfg, sd, scans, device, "serve_sorted", (K7,),
+                   COUNTERS[:6])
+    paths["serve_sorted"] = served["launches"]
+    emit(served["result"])
+    shipped = SHIPPED["kitti_sem"]()
+    served = serve(shipped, init_state_dict(shipped, seed=SEED), scans[:3],
+                   device, "serve_scatter", (), COUNTERS)
+    paths["serve_scatter"] = served["launches"]
+    emit(served["result"])
+    fine = SHIPPED["fine_grid"]()
+    fine_sd = init_state_dict(fine, seed=SEED)
+    fine_scans = [synthetic_scan(fine, rng, n_points) for _ in range(2)]
+    for impl, launched, idle in (("scatter", (), COUNTERS),
+                                 ("sorted", (K7,), COUNTERS[:6])):
+        served = serve(fine.replace(fused_impl=impl), fine_sd, fine_scans,
+                       device, f"serve_fine_grid_{impl}", launched, idle)
+        paths[f"serve_fine_grid_{impl}"] = served["launches"]
+        emit(served["result"])
+    parity_sorted(cfg, sd, scans[:2], device)
+    trained = train_scatter(rng, device)
+    paths["train_scatter"] = trained["launches"]
+    emit(trained["result"])
+    shipped_presets = presets(rng, device)
+    paths["presets"] = shipped_presets["launches"]
+    emit(shipped_presets)
 
     kernels = []
     for row in rows:

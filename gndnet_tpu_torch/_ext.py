@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # C signatures: name -> (library, argtypes).  Every entry returns int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "bitonic_sort_i32": ("bitonic_sort", [_P, _I, _P]),
     "cell_histogram_i32": ("cell_histogram", [_P, _P, _I, _I, _I, _P]),
@@ -41,6 +41,8 @@ SIGNATURES = {
                                            _I, _I, _I, _I, _I, _P]),
     "affine_bwd_dmmat": ("affine_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                         _I, _P]),
+    "suffix_segment_reduce": ("suffix_segment", [_P, _P, _P, _P, _P, _L, _I,
+                                                 _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

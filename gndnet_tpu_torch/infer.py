@@ -26,7 +26,7 @@ class GroundInferenceEngine:
     """Scan -> (elevation map, per-point segmentation) engine.
 
     Args:
-      cfg: model config (fused_impl must be 'affine').
+      cfg: model config, any fused_impl ('scatter', 'sorted', 'affine').
       state_dict: weights in the reference's names
         (`weights.state_dict_from_flax` or `weights.init_state_dict`).
       threshold: segmentation threshold (the reference uses 0.08 in

@@ -1,11 +1,20 @@
-"""Pillar Feature Net parameters and their eval-mode affine map.
+"""Pillar Feature Net: parameters, the flat-stream activation and its
+eval-mode affine map.
 
-Counterpart of `gndnet_tpu.models.pfn` for the serving slice: the module
-tree carries the reference's parameter names
-(`voxel_feature_extractor.pfn_layers.<i>.linear.weight`, `...norm.*`), and
-`PFNLayer.effective_affine` gives the layer as one affine map, which the
-affine canvas consumes.  The per-pillar forward of the reference-style path
-is not part of this slice.
+Counterpart of `gndnet_tpu.models.pfn`: the module tree carries the
+reference's parameter names
+(`voxel_feature_extractor.pfn_layers.<i>.linear.weight`, `...norm.*`).
+`PFNLayer.activate_flat` is Linear (+ BatchNorm on running statistics) +
+ReLU over a flat (N, D) decorated point stream, the PFN of the scatter and
+sorted impls; `activate_flat_bn_train` is its use_norm training form, with
+the batch statistics of the reference's padded pillar tensor derived from
+the flat stream; `effective_affine` gives the eval-mode layer as one affine
+map, which the affine canvas consumes.  The per-pillar forward of the
+reference-style path is not ported.
+
+The linear is `x @ kernel (+ bias)` in float32, as flax's Dense computes
+it; batch norm follows flax's arithmetic and its running update (momentum
+0.99, the BIASED variance).
 """
 
 from __future__ import annotations
@@ -14,6 +23,9 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+FLAX_PFN_MOMENTUM = 0.99   # running = 0.99 * running + 0.01 * batch
+BN_EPS = 1e-3
 
 
 class PFNLayer(nn.Module):
@@ -28,7 +40,62 @@ class PFNLayer(nn.Module):
         units = out_channels if last_layer else out_channels // 2
         self.linear = nn.Linear(in_channels, units, bias=not use_norm)
         if use_norm:
-            self.norm = nn.BatchNorm1d(units, eps=1e-3, momentum=0.01)
+            self.norm = nn.BatchNorm1d(units, eps=BN_EPS, momentum=0.01)
+
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
+        """flax Dense: x @ kernel, then + bias (not fused into one addmm,
+        whose CPU kernel adds in another order)."""
+        z = x @ self.linear.weight.t()
+        return z if self.linear.bias is None else z + self.linear.bias
+
+    def activate_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> relu(Linear (+ BN on running statistics)), as flax's
+        `activate_flat(x, train=False)`: (z - mean) * (rsqrt(var + eps) *
+        scale) + bias."""
+        z = self.dense(x)
+        if self.use_norm:
+            n = self.norm
+            z = ((z - n.running_mean)
+                 * (torch.rsqrt(n.running_var + BN_EPS) * n.weight) + n.bias)
+        return torch.relu(z)
+
+    def bn_train_affine(self, s: torch.Tensor, q: torch.Tensor,
+                        rows: torch.Tensor):
+        """Batch-statistics (inv, shift) from per-channel sums s and sums of
+        squares q over `rows` pillar-tensor rows (a dynamic count, floored
+        at 1): mean = s / rows, var = max(q / rows - mean^2, 0), with the
+        gradient through both.  The running statistics move as flax's
+        BatchNorm moves them on the 2-row surrogate [mean + sd, mean - sd],
+        outside autograd."""
+        rows = torch.clamp(rows.float(), min=1.0)
+        mean = s / rows
+        var = torch.maximum(q / rows - mean * mean, torch.zeros_like(q))
+        n = self.norm
+        with torch.no_grad():
+            sdev = torch.sqrt(var)
+            sur = torch.stack([mean + sdev, mean - sdev])
+            m2 = sur.mean(dim=0)
+            v2 = torch.clamp((sur * sur).mean(dim=0) - m2 * m2, min=0.0)
+            keep = FLAX_PFN_MOMENTUM
+            n.running_mean.copy_(keep * n.running_mean + (1.0 - keep) * m2)
+            n.running_var.copy_(keep * n.running_var + (1.0 - keep) * v2)
+            n.num_batches_tracked.add_(1)
+        inv = n.weight / torch.sqrt(var + BN_EPS)
+        return inv, n.bias - mean * inv
+
+    def activate_flat_bn_train(self, decorated: torch.Tensor,
+                               total_rows: torch.Tensor):
+        """use_norm training on the flat kept-masked (N, D) stream: the
+        padded pillar tensor's pad rows (and dropped points) are zero rows,
+        which the bias-free linear maps to z = 0, so one sum and one sum of
+        squares over the flat z stream give its batch statistics with the
+        reference's dynamic divisor `total_rows` (n_actual_pillars x
+        max_points).  Returns (acts (N, C), pad_floor (C,) = relu(shift),
+        what every padding row gives its pillar's max)."""
+        z = self.dense(decorated).float()
+        inv, shift = self.bn_train_affine(z.sum(dim=0), (z * z).sum(dim=0),
+                                          total_rows)
+        return torch.relu(z * inv + shift), torch.relu(shift)
 
     def effective_affine(self):
         """Eval-mode (kernel (in, units), bias (units,)) of Linear (+ folded
@@ -37,7 +104,7 @@ class PFNLayer(nn.Module):
         kernel = self.linear.weight.t()
         if not self.use_norm:
             return kernel, self.linear.bias
-        inv = self.norm.weight / torch.sqrt(self.norm.running_var + 1e-3)
+        inv = self.norm.weight / torch.sqrt(self.norm.running_var + BN_EPS)
         return (kernel * inv[None, :],
                 self.norm.bias - self.norm.running_mean * inv)
 

@@ -1,8 +1,20 @@
-"""Binning and the affine PFN canvas (the fused serving frontend).
+"""Binning and the three fused canvas frontends.
 
 Counterparts of `gndnet_tpu.ops.pillarize`: `PillarGeometry`,
-`PointContext`, `_bin`, `bin_points`, `bin_points_batch`,
-`affine_pfn_weights` and the packed-key branches of `affine_canvas`.
+`PointContext`, `_bin`, `bin_points`, `bin_points_batch`, `point_ranks`,
+`fused_frontend` and `canvas_from_activations` (the 'scatter' impl),
+`fused_frontend_sorted` and `canvas_from_sorted_activations` (the 'sorted'
+impl), `affine_pfn_weights` and the packed-key branches of `affine_canvas`
+(the 'affine' impl).
+
+The scatter and sorted frontends decorate every point (its features, its
+offset from its cell's kept-point mean and from the cell centre), mask the
+points past each cell's cap, and leave the PFN to the caller; their canvas
+is the per-cell max of the activations.  'scatter' sums and maxes with
+duplicate-index scatters (`index_add_`, `scatter_reduce('amax')`, which on
+the card add in atomic order, so its sums are not bit-stable there; the
+counts, sums of 1.0, are exact).  'sorted' sorts the stream by cell once and
+reduces contiguous runs with K7.
 
 `affine_canvas` turns raw scans into the post-PFN pseudo-image without
 building the (pillars, points) tensor: sort one packed (cell, index) key per
@@ -20,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from gndnet_tpu_torch.ops import affine, sort
+from gndnet_tpu_torch.ops import affine, segment, sort
 
 
 class PillarGeometry(NamedTuple):
@@ -105,6 +117,231 @@ def bin_points_batch(points_b: torch.Tensor,
     cell = batch_ids * c3 + (cz * ny + cy) * nx + cx
     cell = torch.where(valid, cell, b * c3).to(torch.int32)
     return PointContext(cx, cy, cz, cell, valid, b * c3 + 1, b)
+
+
+# ---------------------------------------------------------------------------
+# the 'scatter' frontend
+# ---------------------------------------------------------------------------
+
+def segment_flags(sorted_cell: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: True where a run of a sorted id stream starts."""
+    return torch.cat([torch.ones(1, dtype=torch.bool,
+                                 device=sorted_cell.device),
+                      sorted_cell[1:] != sorted_cell[:-1]])
+
+
+def _run_start_positions(sorted_cell: torch.Tensor):
+    """(positions, each row's run start), both (N,) int32."""
+    pos = torch.arange(sorted_cell.shape[0], dtype=torch.int32,
+                       device=sorted_cell.device)
+    start = torch.where(segment_flags(sorted_cell), pos, 0)
+    return pos, torch.cummax(start, dim=0).values
+
+
+def point_ranks(ctx: PointContext) -> torch.Tensor:
+    """(M,) int32 occurrence rank of every point within its cell, in stream
+    order: a stable sort by cell id keeps each cell's points in order, so
+    rank = sorted position - run start, scattered back."""
+    order = torch.argsort(ctx.cell, stable=True)
+    pos, start = _run_start_positions(ctx.cell[order])
+    return torch.zeros_like(pos).scatter_(0, order, pos - start)
+
+
+def _decorate(pts, cx, cy, mean_pp, keptf, geom, with_distance):
+    """[p, xyz - cell mean, xy - cell centre (, |xyz|)] * kept, float32."""
+    xyz = pts[:, :3]
+    vx, vy = geom.voxel_size[0], geom.voxel_size[1]
+    x_offset = vx / 2.0 + geom.pc_range[0]
+    y_offset = vy / 2.0 + geom.pc_range[1]
+    f_center = torch.stack(
+        [pts[:, 0] - (cx.to(pts.dtype) * vx + x_offset),
+         pts[:, 1] - (cy.to(pts.dtype) * vy + y_offset)], dim=-1)
+    feats = [pts, xyz - mean_pp, f_center]
+    if with_distance:
+        feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+    return torch.cat(feats, dim=-1) * keptf
+
+
+def fused_frontend(points: torch.Tensor, ctx: PointContext,
+                   geom: PillarGeometry, max_points: int,
+                   with_distance: bool = False,
+                   exact_point_cap: bool = True):
+    """Flat (M, F) points -> (decorated (M, D), kept (M,) bool, cell_count
+    (num_segments - 1,) int32): one rank sort when `exact_point_cap` (the
+    first `max_points` points of each cell in stream order are kept; all
+    in-range points without it), one scatter-add of [xyz * kept, kept] per
+    cell and one gather back to the points."""
+    if exact_point_cap:
+        kept = ctx.valid & (point_ranks(ctx) < max_points)
+    else:
+        kept = ctx.valid
+    keptf = kept.to(points.dtype)[:, None]
+    cell = ctx.cell.long()
+    stats = torch.zeros((ctx.num_segments, 4), dtype=points.dtype,
+                        device=points.device).index_add_(
+        0, cell, torch.cat([points[:, :3] * keptf, keptf], dim=-1))
+    per_point = stats[cell]
+    mean_pp = per_point[:, :3] / torch.clamp(per_point[:, 3:4], min=1.0)
+    decorated = _decorate(points, ctx.cx, ctx.cy, mean_pp, keptf, geom,
+                          with_distance)
+    cell_count = stats[:ctx.num_segments - 1, 3].to(torch.int32)
+    return decorated, kept, cell_count
+
+
+def _finish_canvas(rows, cell_count, max_points, pad_floor, batch, geom):
+    """The reference's padding-row floor (a non-full pillar's zero rows give
+    activate(0) to its max) and zero for empty cells."""
+    occupied = cell_count > 0
+    canvas = rows
+    if pad_floor is not None:
+        has_padding_row = occupied & (cell_count < max_points)
+        canvas = torch.where(has_padding_row[:, None],
+                             torch.maximum(canvas,
+                                           pad_floor[None, :].to(rows.dtype)),
+                             canvas)
+    canvas = torch.where(occupied[:, None], canvas,
+                         torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return canvas.reshape(batch, geom.ny, geom.nx, -1)
+
+
+def masked_activations(acts: torch.Tensor,
+                       kept: torch.Tensor) -> torch.Tensor:
+    """The max's input: the activations of kept rows, the dtype's lowest
+    value elsewhere."""
+    neg = torch.tensor(torch.finfo(acts.dtype).min, dtype=acts.dtype,
+                       device=acts.device)
+    return torch.where(kept[:, None], acts, neg).contiguous()
+
+
+def canvas_from_activations(point_feats: torch.Tensor, ctx: PointContext,
+                            kept: torch.Tensor, cell_count: torch.Tensor,
+                            geom: PillarGeometry, max_points: int,
+                            pad_floor: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Per-cell max of the kept points' (M, C) features into the (B, ny,
+    nx, C) canvas by one scatter-max.  Differentiable in `point_feats` and
+    `pad_floor`: a cell's cotangent splits equally among its tied maxima
+    and 1/2 : 1/2 on a tie with the floor, as JAX's scatter-max and
+    `jnp.maximum` split it."""
+    if geom.nz != 1:
+        raise ValueError("fused canvas scatter requires nz == 1")
+    m, c = point_feats.shape
+    index = ctx.cell.long()[:, None].expand(m, c)
+    canvas = torch.full((ctx.num_segments, c),
+                        torch.finfo(point_feats.dtype).min,
+                        dtype=point_feats.dtype,
+                        device=point_feats.device).scatter_reduce(
+        0, index, masked_activations(point_feats, kept), "amax",
+        include_self=True)
+    return _finish_canvas(canvas[:ctx.num_segments - 1], cell_count,
+                          max_points, pad_floor, ctx.batch, geom)
+
+
+# ---------------------------------------------------------------------------
+# the 'sorted' frontend (K7)
+# ---------------------------------------------------------------------------
+
+def _run_starts(sorted_cell: torch.Tensor, ncells: int) -> torch.Tensor:
+    """Each cell id's first row in a sorted stream (clipped into range;
+    meaningless for an absent id)."""
+    starts = torch.searchsorted(
+        sorted_cell, torch.arange(ncells, dtype=sorted_cell.dtype,
+                                  device=sorted_cell.device), side="left")
+    return starts.clamp(0, sorted_cell.shape[0] - 1)
+
+
+class SortedStream(NamedTuple):
+    """A flat point stream sorted by cell id (stable), padded with dropped
+    rows to a multiple of the K7 chunk."""
+
+    spts: torch.Tensor         # (N, F) points
+    cx: torch.Tensor           # (N,) int32 x-cell, recomputed
+    cy: torch.Tensor           # (N,) int32 y-cell, recomputed
+    sorted_cell: torch.Tensor  # (N,) int32, non-decreasing
+    kept: torch.Tensor         # (N,) bool valid & rank < max_points
+    xyzk: torch.Tensor         # (N, 4) [xyz * kept, kept], K7's sum input
+
+
+def sorted_stream(points: torch.Tensor, ctx: PointContext,
+                  geom: PillarGeometry, max_points: int,
+                  exact_point_cap: bool = True,
+                  chunk: int = 1024) -> SortedStream:
+    """One stable argsort by cell, rank = position - run start; cell
+    coordinates and validity are recomputed from the sorted points."""
+    m = points.shape[0]
+    pad = (-m) % chunk
+    order = torch.argsort(ctx.cell, stable=True)
+    spts = points[order]
+    cx, cy, _, valid = _bin(spts, geom)
+    sorted_cell = ctx.cell[order]
+    if pad:
+        spts = torch.nn.functional.pad(spts, (0, 0, 0, pad))
+        cx = torch.nn.functional.pad(cx, (0, pad))
+        cy = torch.nn.functional.pad(cy, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+        sorted_cell = torch.nn.functional.pad(sorted_cell, (0, pad),
+                                              value=ctx.num_segments - 1)
+    pos, start = _run_start_positions(sorted_cell)
+    kept = valid & ((pos - start) < max_points) if exact_point_cap else valid
+    keptf = kept.to(points.dtype)[:, None]
+    xyzk = torch.cat([spts[:, :3] * keptf, keptf], dim=-1)
+    return SortedStream(spts, cx, cy, sorted_cell, kept, xyzk)
+
+
+def fused_frontend_sorted(points: torch.Tensor, ctx: PointContext,
+                          geom: PillarGeometry, max_points: int,
+                          with_distance: bool = False,
+                          exact_point_cap: bool = True, chunk: int = 1024,
+                          reference: bool = False):
+    """The 'scatter' frontend over `sorted_stream`: every row's run totals
+    come from two K7 sums (suffix, and prefix as the flipped suffix of the
+    negated ids): totals = prefix + suffix - row.
+
+    Returns (decorated (N, D), kept (N,), sorted_cell (N,) int32,
+    cell_count (num_segments - 1,) int32), N the padded length, in SORTED
+    order; pair with `canvas_from_sorted_activations`.
+    `reference=True` takes K7's plain version."""
+    reduce = (segment.suffix_segment_reduce_plain if reference
+              else segment.suffix_segment_reduce)
+    spts, cx, cy, sorted_cell, kept, xyzk = sorted_stream(
+        points, ctx, geom, max_points, exact_point_cap, chunk)
+    keptf = kept.to(points.dtype)[:, None]
+    suffix = reduce(xyzk, sorted_cell, "sum", chunk)
+    prefix = reduce(torch.flip(xyzk, (0,)), torch.flip(-sorted_cell, (0,)),
+                    "sum", chunk).flip(0)
+    totals = prefix + suffix - xyzk
+    mean_pp = totals[:, :3] / torch.clamp(totals[:, 3:4], min=1.0)
+    decorated = _decorate(spts, cx, cy, mean_pp, keptf, geom, with_distance)
+    ncells = ctx.num_segments - 1
+    starts = _run_starts(sorted_cell, ncells)
+    ids = torch.arange(ncells, dtype=sorted_cell.dtype,
+                       device=sorted_cell.device)
+    cell_count = torch.where(sorted_cell[starts] == ids, totals[starts, 3],
+                             0.0).to(torch.int32)
+    return decorated, kept, sorted_cell, cell_count
+
+
+def canvas_from_sorted_activations(acts: torch.Tensor, kept: torch.Tensor,
+                                   sorted_cell: torch.Tensor,
+                                   cell_count: torch.Tensor,
+                                   ctx: PointContext, geom: PillarGeometry,
+                                   max_points: int,
+                                   pad_floor: torch.Tensor | None = None,
+                                   chunk: int = 1024,
+                                   reference: bool = False) -> torch.Tensor:
+    """Canvas from SORTED (N, C) activations: a K7 suffix max of the kept
+    rows, then one gather of each cell's first row.  Not differentiable
+    (the JAX package has no gradient through its Pallas kernel either).
+    `reference=True` takes K7's plain version."""
+    if geom.nz != 1:
+        raise ValueError("fused canvas requires nz == 1")
+    reduce = (segment.suffix_segment_reduce_plain if reference
+              else segment.suffix_segment_reduce)
+    reduced = reduce(masked_activations(acts, kept), sorted_cell, "max",
+                     chunk)
+    rows = reduced[_run_starts(sorted_cell, ctx.num_segments - 1)]
+    return _finish_canvas(rows, cell_count, max_points, pad_floor, ctx.batch,
+                          geom)
 
 
 def affine_pfn_weights(kernel: torch.Tensor, bias: torch.Tensor,
@@ -233,13 +470,5 @@ def affine_canvas(points: torch.Tensor, ctx: PointContext,
 
     w_cell = (bias.to(compute_dtype) - dot(mean, w_clu)
               - dot(centers, w_cen))
-    canvas = torch.relu(smax + w_cell)
-    pad_floor = torch.relu(bias.to(compute_dtype))
-    occupied = count > 0
-    has_padding_row = occupied & (count < max_points)
-    canvas = torch.where(has_padding_row[:, None],
-                         torch.maximum(canvas, pad_floor[None, :]), canvas)
-    canvas = torch.where(occupied[:, None], canvas,
-                         torch.zeros((), dtype=compute_dtype,
-                                     device=canvas.device))
-    return canvas.reshape(b, geom.ny, geom.nx, -1)
+    return _finish_canvas(torch.relu(smax + w_cell), count, max_points,
+                          torch.relu(bias.to(compute_dtype)), b, geom)

@@ -1,14 +1,18 @@
 """Where the time of one served kitti_sem scan goes, on the card.
 
     python -m gndnet_tpu_torch.profile_serve [--scans 30] [--out FILE]
+        [--impl affine|scatter|sorted] [--shipped]
 
 Serves synthetic 100 000-point scans through `GroundInferenceEngine` at the
-serving settings (bf16 convs, 'default' precision, random weights from a
-seed) and prints JSON lines:
+serving settings (bf16 convs, 'default' precision; with --shipped, float32
+and 'highest' as kitti_sem.yaml ships; random weights from a seed) and
+prints JSON lines:
   * `stages`: mean milliseconds per scan of each stage, by CUDA events in
-    one stream: host-to-device copy, shift, canvas (binning, K1 sort, row
-    gather, K3 counts, K2 scan, epilogue), SegNet, segmentation, and the
-    device-to-host copy; plus the host-clock time of `infer()`;
+    one stream: host-to-device copy, shift, canvas (binning and the
+    impl's frontend: K1 sort, row gather, K3 counts, K2 scan, epilogue for
+    'affine'; argsort, K7 sums, PFN, K7 max for 'sorted'; rank sort,
+    scatter-add, PFN, scatter-max for 'scatter'), SegNet, segmentation,
+    and the device-to-host copy; plus the host-clock time of `infer()`;
   * `kernels`: device time per kernel name per scan over 10 profiled
     scans from `torch.profiler`, device operations per scan, and the device
     busy share of that window (kernel time over wall time), or "not
@@ -119,13 +123,18 @@ def main() -> None:
     ap.add_argument("--scans", type=int, default=30)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
+    ap.add_argument("--impl", default="affine",
+                    choices=("affine", "scatter", "sorted"))
+    ap.add_argument("--shipped", action="store_true",
+                    help="float32 and 'highest', as kitti_sem.yaml ships")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     smi = card()
-    cfg = kitti_sem_config().replace(
-        compute_dtype="bfloat16", matmul_precision="default",
-        fused_impl="affine")
+    cfg = kitti_sem_config().replace(fused_impl=args.impl)
+    if not args.shipped:
+        cfg = cfg.replace(compute_dtype="bfloat16",
+                          matmul_precision="default")
     engine = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0))
     rng = np.random.default_rng(0)
     scans = [synthetic_scan(cfg, rng) for _ in range(args.scans)]
@@ -140,7 +149,9 @@ def main() -> None:
     stage_times(engine, padded[:3])                     # warm
     profiled = iter(scans[:10])
     lines = [
-        {"card": smi, "torch": torch.__version__, "scans": len(scans)},
+        {"card": smi, "torch": torch.__version__, "scans": len(scans),
+         "fused_impl": cfg.fused_impl, "compute_dtype": cfg.compute_dtype,
+         "matmul_precision": cfg.matmul_precision},
         {"stages_ms": stage_times(engine, padded),
          "infer_ms_host_clock": infer_ms,
          "scans_per_s_host_clock": 1e3 / infer_ms},

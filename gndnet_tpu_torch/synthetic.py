@@ -43,7 +43,8 @@ def synthetic_scan(cfg, rng, n: int = 100_000) -> np.ndarray:
     o[::2, 0] = rng.uniform(x0, x1, o[::2, 0].shape)
     o[::2, 2] = rng.uniform(8, 20, o[::2, 2].shape)
     pts[:, :3] = np.concatenate([g, b, d, o])
-    pts[:, 3] = rng.uniform(0, 1, n)
+    intensity = rng.uniform(0, 1, n)
+    pts[:, 3:] = intensity[:, None]          # none for 3-feature configs
     return pts[rng.permutation(n)]
 
 

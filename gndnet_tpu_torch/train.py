@@ -2,8 +2,10 @@
 
 Counterpart of `gndnet_tpu.train` for single-device fused training:
 `GroundEstimatorNet.fused(points, train=True)` on the raw (B, N, F) batch
-(the affine canvas with K4/K5 forward and K6 backward, SegNet with batch
-statistics), `losses.total_loss`, then SGD.
+(the affine canvas with K4/K5 forward and K6 backward, or the scatter
+canvas; a use_norm PFN on batch statistics through the scatter frontend;
+SegNet with batch statistics), `losses.total_loss`, then SGD.  The
+'sorted' impl has no gradient and raises.
 
 Optimizer parity: the JAX package's optax chain add_decayed_weights ->
 trace(momentum) -> scale_by_schedule(-step_lr) is torch SGD(momentum,

@@ -14,7 +14,7 @@ import torch
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.infer import GroundInferenceEngine
 from gndnet_tpu_torch import train
-from gndnet_tpu_torch.ops import affine, sort
+from gndnet_tpu_torch.ops import affine, segment, sort
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -178,3 +178,61 @@ def test_engine_kernel_path_matches_plain_path(dev):
     e1, l1 = eng.run(padded)
     e2, l2 = eng.run(padded, reference=True)
     assert torch.equal(e1, e2) and torch.equal(l1, l2)
+
+
+def _k7_stream(kind, n, rng):
+    if kind == "runs":
+        return np.sort(rng.integers(0, n // 20 + 1, n))
+    if kind == "negated":
+        return np.flip(-np.sort(rng.integers(0, n // 20 + 1, n)))
+    if kind == "one_cell":
+        return np.full(n, 3)
+    # the drop run: the last 60% of rows share one id, over many tiles
+    cells = np.sort(rng.integers(0, n // 20 + 1, n))
+    cells[int(0.4 * n):] = n
+    return cells
+
+
+@pytest.mark.parametrize("kind", ["runs", "negated", "one_cell", "drop"])
+@pytest.mark.parametrize("n,width", [(1, 4), (1000, 4), (5000, 64),
+                                     (70_001, 4), (20_480, 64)])
+def test_suffix_segment_kernel(dev, kind, n, width):
+    """K7 against its plain version, which sums in the kernel's order: max
+    (f32 and bf16) and sum equal to the bit, and the same bits on a second
+    run; N is not always a multiple of the kernel's tile."""
+    rng = np.random.default_rng(n + width)
+    cell = torch.from_numpy(_k7_stream(kind, n, rng).astype(np.int32)).to(
+        dev)
+    x = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(
+        dev)
+    before = segment.suffix_segment_reduce.launches
+    for xx in (x, x.bfloat16()):
+        got = segment.suffix_segment_reduce(xx, cell, "max", 1)
+        assert got.dtype == xx.dtype
+        assert torch.equal(got, segment.suffix_segment_reduce_plain(
+            xx, cell, "max", 1))
+    x[:, -1] = (x[:, -1] > 0).float()
+    got = segment.suffix_segment_reduce(x, cell, "sum", 1)
+    again = segment.suffix_segment_reduce(x, cell, "sum", 1)
+    want = segment.suffix_segment_reduce_plain(x, cell, "sum", 1)
+    assert segment.suffix_segment_reduce.launches == before + 4
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+def test_sorted_engine_kernel_path_matches_plain_path(dev):
+    """The sorted impl with K7 against its plain path (f32, TF32 off):
+    the same elevation to the bit."""
+    cfg = GndNetConfig(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
+                       grid_range=(0.0, -8.0, 16.0, 8.0),
+                       max_points_voxel=20, lidar_height=1.7,
+                       fused_impl="sorted")
+    eng = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0),
+                                bucket=1024)
+    scan = synthetic_scan(cfg, np.random.default_rng(0), 3000)
+    padded = torch.from_numpy(eng._prepare(scan)[0])
+    before = segment.suffix_segment_reduce.launches
+    e1, _ = eng.run(padded)
+    assert segment.suffix_segment_reduce.launches == before + 3
+    e2, _ = eng.run(padded, reference=True)
+    assert torch.equal(e1, e2)

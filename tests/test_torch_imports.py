@@ -112,22 +112,25 @@ def test_default_device_is_the_card():
 
 
 def test_out_of_slice_paths_raise_not_implemented():
-    """B=2 serving and training run; the 'scatter' impl and grids whose
-    packed key overflows 31 bits (fine_grid) still raise."""
+    """B=2 serving and training run through 'affine' and 'scatter';
+    'sorted' serves but does not train, and grids whose packed key
+    overflows 31 bits (fine_grid) still raise on the affine impl."""
     rng = np.random.default_rng(0)
     small = dict(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
                  grid_range=(0.0, -8.0, 16.0, 8.0), max_points_voxel=20)
-    cfg = tcfg.GndNetConfig(fused_impl="affine", **small)
-    net = GroundEstimatorNet(cfg, device="cpu")
     pts = torch.from_numpy(rng.uniform(0, 8, (2, 64, 4)).astype(np.float32))
+    for impl in ("affine", "scatter"):
+        cfg = tcfg.GndNetConfig(fused_impl=impl, **small)
+        net = GroundEstimatorNet(cfg, device="cpu")
+        assert net.fused(pts).shape == (2, cfg.ny, cfg.nx)
+        pred = net.fused(pts, train=True)
+        assert pred.shape == (2, cfg.ny, cfg.nx) and pred.requires_grad
+        pred.sum().backward()
+        assert all(p.grad is not None for p in net.parameters())
+    net = GroundEstimatorNet(cfg.replace(fused_impl="sorted"), device="cpu")
     assert net.fused(pts).shape == (2, cfg.ny, cfg.nx)
-    pred = net.fused(pts, train=True)
-    assert pred.shape == (2, cfg.ny, cfg.nx) and pred.requires_grad
-    pred.sum().backward()
-    assert all(p.grad is not None for p in net.parameters())
-    with pytest.raises(NotImplementedError, match="other forward paths"):
-        GroundEstimatorNet(cfg.replace(fused_impl="scatter"),
-                           device="cpu").fused(pts[:1])
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        net.fused(pts, train=True)
     fine = tcfg.fine_grid_config().replace(fused_impl="affine")
     with pytest.raises(NotImplementedError, match="31 bits"):
         GroundEstimatorNet(fine, device="cpu").fused(
