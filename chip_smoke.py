@@ -8,36 +8,49 @@ Phases, each printing one JSON line:
   2. build: compile every kernel of csrc/ with nvcc;
   3. kernels: each hand-written kernel (K1 sort, K3 cell counts, K2 capped
      scan at the serving shapes; K4 and K5 argmax scans and K6 d(mmat) at
-     the kitti_sem B=2 training shapes) against its plain PyTorch version
-     on the card, with edge cases, its time, the plain version's time and
-     a library call's time (CUDA events over warm repetitions);
+     the kitti_sem B=2 training shapes; K7 at the sorted frontend's; K10
+     pair sort on the fine_grid affine path's (cell, iota) pairs; K8 and
+     K9 at profile_affine's shapes) against its plain PyTorch version on
+     the card, with edge cases, its time, the plain version's time and a
+     library call's time (CUDA events over warm repetitions);
   4. serve: kitti_sem single-scan serving (bf16 convs, 'default' precision,
      random weights from a seed) of synthetic 100 000-point scans through
-     GroundInferenceEngine on the card; K1-K3 must launch and K4-K6 not,
-     elevations must be finite and labels in {-1, 0, 1};
+     GroundInferenceEngine on the card; K1-K3 must launch once per scan and
+     no other kernel, elevations must be finite and labels in {-1, 0, 1};
   5. parity: the same engine at float32 / 'highest' with TF32 off, kernel
      path against the plain path on the card;
   6. train: kitti_sem training at B=2 (bf16, 'default', affine) on
      synthetic labelled scans through make_train_step: K3, K5 and K6 must
-     launch and K2 not, the loss must stay finite and every parameter
-     move; steps/s at B=2 and at B=16 (bench.py's train batch);
+     launch and no other kernel, the loss must stay finite and every
+     parameter move; steps/s at B=2 and at B=16 (bench.py's train batch);
   7. train_parity: three float32 / 'highest' train steps with TF32 off,
      kernel path (K4, K6) against the plain path;
   8. serve_sorted: the same serving with fused_impl='sorted': K7 must
-     launch 3 times per scan (after K7's kernel row in phase 3, held
-     against its plain version on the main path's inputs and edge cases)
-     and K1-K6 never;
+     launch 3 times per scan and no other kernel;
   9. serve_scatter: kitti_sem_config() exactly as shipped ('scatter',
      float32, 'highest', TF32 off): no kernel launches;
  10. serve_fine_grid: fine_grid_config() as shipped (250x250), two scans
      each through 'scatter' and 'sorted';
  11. parity_sorted: float32 / 'highest', the sorted kernel path against
-     its plain path, and sorted against scatter on the card;
+     its plain path, and sorted against scatter, on the card;
  12. train_scatter: kitti_sem as shipped, B=2, three steps, with the PFN
      plain and with use_norm's batch-statistics BN; no kernel launches;
  13. presets: camera, custom_local and fine_grid as shipped serve a scan
      and take a B=2 train step with use_norm off and on;
- 14. the kernels line, then the result line.
+ 14. serve_fine_grid_affine: fine_grid at the serving settings ('affine',
+     bf16, 'default'), four scans: K10, K3 and K2 once per scan, no other
+     kernel (the packed key overflows, so K10 sorts the pairs, not K1);
+ 15. parity_fine_grid: the same at float32 / 'highest', TF32 off, kernel
+     path against the plain path and affine against scatter;
+ 16. train_fine_grid_affine: fine_grid through 'affine' at B=2 (bf16),
+     three steps: the stable batched sort, K3, K5 and K6, no K10;
+ 17. serve_many: `infer_many` bursts of kitti_sem scans at K=4 and K=16
+     and of fine_grid scans at K=2: one fused call each (K3 and K2 once,
+     K1 and K10 never), the batched canvas equal to the per-scan ones and
+     each elevation within SERVE_MANY_ELEV_ATOL of per-scan `infer`;
+ 18. profile_affine: the stage profile's K8, K10 and K9 cases, the
+     launches that the kernels line reports for K8 and K9;
+ 19. the kernels line, the card line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -52,13 +65,14 @@ import time
 import numpy as np
 import torch
 
-from gndnet_tpu_torch import _ext, train
+from gndnet_tpu_torch import _ext, profile_affine, train
 from gndnet_tpu_torch.config import (camera_config, custom_local_config,
                                      fine_grid_config, kitti_sem_config)
 from gndnet_tpu_torch.infer import GroundInferenceEngine
-from gndnet_tpu_torch.ops import affine, segment, sort
+from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import _cell_indices
+from gndnet_tpu_torch.profile_affine import serving_config, time_ms
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -80,6 +94,11 @@ IMPL_RTOL, IMPL_ATOL = 1e-4, 1e-5
 # unpool by max-pool argmax, where a near-tied window can flip: measured
 # 1.45e-3 on an H100 80GB HBM3 at 700 W
 IMPL_ELEV_ATOL = 1e-2
+# infer_many against per-scan infer, bf16 convs: the canvases are equal,
+# the SegNet at B=K may convolve in another order than at B=1, which the
+# argmax routing can amplify as above: measured 1.46e-3 on an H100 80GB
+# HBM3 at 700 W
+SERVE_MANY_ELEV_ATOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -89,21 +108,6 @@ def emit(obj) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean milliseconds of fn() over `reps` warm calls, by CUDA events."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main_path_inputs(engine, padded: torch.Tensor):
@@ -372,8 +376,9 @@ def set_bn_stats(sd: dict, rng) -> None:
 COUNTERS = (sort.sort_i32, affine.histogram_counts,
             affine.affine_scan_gather, affine.affine_scan_argmax_pair,
             affine.affine_scan_argmax_packed, affine.affine_bwd_dmmat,
-            segment.suffix_segment_reduce)
-K7 = segment.suffix_segment_reduce
+            segment.suffix_segment_reduce, affine_aux.affine_segment_scan,
+            affine_aux.segment_broadcast_t, sort.sort2_i32)
+K1, K3, K2, K4, K5, K6, K7, K8, K9, K10 = COUNTERS
 # the shipped configurations the later phases drive as they are written
 SHIPPED = {"kitti_sem": kitti_sem_config, "fine_grid": fine_grid_config,
            "camera": camera_config, "custom_local": custom_local_config}
@@ -385,32 +390,37 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(launched, idle, path: str) -> dict:
+def read_launches(launched, path: str) -> dict:
     """The launch counts of a path just driven: every wrapper in `launched`
-    must have launched, none in `idle`."""
+    must have launched, every other one not."""
     torch.cuda.synchronize()
     counts = {fn.__name__: fn.launches for fn in COUNTERS}
-    for fn in launched:
-        require(fn.launches > 0, f"{fn.__name__} was not launched on the "
-                                 f"{path} path")
-    for fn in idle:
-        require(fn.launches == 0, f"{fn.__name__} was launched "
-                                  f"{fn.launches} times on the {path} path")
+    for fn in COUNTERS:
+        if fn in launched:
+            require(fn.launches > 0, f"{fn.__name__} was not launched on "
+                                     f"the {path} path")
+        else:
+            require(fn.launches == 0, f"{fn.__name__} was launched "
+                                      f"{fn.launches} times on the {path} "
+                                      "path")
     return counts
 
 
-def serve(cfg, sd, scans, device, phase="serve", launched=COUNTERS[:3],
-          idle=COUNTERS[3:]) -> dict:
+def serve(cfg, sd, scans, device, phase="serve", per_scan=None) -> dict:
+    """Serve `scans` one by one; `per_scan` {wrapper: launches per scan}
+    names every kernel the path must launch, exactly so often."""
+    per_scan = {K1: 1, K3: 1, K2: 1} if per_scan is None else per_scan
     engine = GroundInferenceEngine(cfg, sd, device=device)
     warm_s = engine.warmup()
     reset_launches()
     t0 = time.perf_counter()
     outs = [engine.infer(s) for s in scans]
     elapsed = time.perf_counter() - t0
-    launches = read_launches(launched, idle, phase)
-    if cfg.fused_impl == "sorted":
-        require(K7.launches == 3 * len(scans),
-                f"K7 launched {K7.launches} times for {len(scans)} scans")
+    launches = read_launches(tuple(per_scan), phase)
+    for fn, k in per_scan.items():
+        require(fn.launches == k * len(scans),
+                f"{fn.__name__} launched {fn.launches} times for "
+                f"{len(scans)} scans on the {phase} path, not {k} per scan")
     for (elev, labels), scan in zip(outs, scans):
         require(elev.shape == (cfg.ny, cfg.nx) and np.isfinite(elev).all(),
                 "elevation finite and (ny, nx)")
@@ -491,11 +501,7 @@ def train_phase(cfg, sd, rng) -> dict:
         losses.append(loss)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = read_launches(
-        (affine.histogram_counts, affine.affine_scan_argmax_packed,
-         affine.affine_bwd_dmmat),
-        (affine.affine_scan_gather, affine.affine_scan_argmax_pair,
-         sort.sort_i32), "train")
+    launches = read_launches((K3, K5, K6), "train")
     losses = [float(v) for v in losses]
     require(all(np.isfinite(losses)), f"train losses finite: {losses}")
     moved = {k: bool((v != before[k]).any())
@@ -550,11 +556,7 @@ def train_parity(cfg, sd, rng) -> dict:
     try:
         reset_launches()
         lk = [float(step_k(kern, points, labels)[1])]
-        launches = read_launches(
-            (affine.histogram_counts, affine.affine_scan_argmax_pair,
-             affine.affine_bwd_dmmat),
-            (affine.affine_scan_argmax_packed, affine.affine_scan_gather),
-            "train_f32")
+        launches = read_launches((K3, K4, K6), "train_f32")
         lp = [float(step_p(plain, points, labels)[1])]
         pk, pp = params_of(kern), params_of(plain)
         diffs = {name: float((pk[name] - w).abs().max())
@@ -660,11 +662,13 @@ def check_segment(xyzk, cell, masked) -> dict:
             **bound(2 * 4 * n * width + 4 * n, n * width)}
 
 
-def parity_sorted(cfg, sd, scans, device) -> dict:
-    """f32 / 'highest', TF32 off: the sorted kernel path (K7) against its
-    plain path, and sorted against scatter, on the card."""
-    cfg32 = cfg.replace(compute_dtype="float32", matmul_precision="highest",
-                        fused_impl="sorted")
+def parity_vs_scatter(cfg, sd, scans, device, phase: str) -> dict:
+    """f32 / 'highest', TF32 off: cfg's impl ('sorted', or 'affine' on a
+    grid whose packed key overflows) on its kernel path against its plain
+    path, and against the scatter impl, on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(compute_dtype="float32", matmul_precision="highest")
     eng = GroundInferenceEngine(cfg32, sd, device=device)
     eng_sc = GroundInferenceEngine(cfg32.replace(fused_impl="scatter"), sd,
                                    device=device)
@@ -687,22 +691,275 @@ def parity_sorted(cfg, sd, scans, device) -> dict:
             worst[name] = max(worst[name], float(d.abs().max()))
         close &= bool(torch.allclose(ck, cs, rtol=IMPL_RTOL, atol=IMPL_ATOL))
         labels_apart += int((lk != ls).sum())
-    result = {"phase": "parity_sorted", "scans": len(scans),
+    result = {"phase": phase, "fused_impl": cfg.fused_impl,
+              "grid": [cfg.ny, cfg.nx], "scans": len(scans),
               "canvas_atol": 1e-5, "elevation_atol": elev_tol,
               "impl_canvas_rtol": IMPL_RTOL, "impl_canvas_atol": IMPL_ATOL,
               "impl_elevation_atol": IMPL_ELEV_ATOL, "max_abs_diff": worst,
-              "canvas_sorted_close_to_scatter": close,
-              "labels_sorted_vs_scatter_differ": labels_apart}
+              "canvas_close_to_scatter": close,
+              "labels_vs_scatter_differ": labels_apart}
     emit(result)
-    require(worst["canvas"] <= 1e-5, f"sorted canvas kernel vs plain "
+    require(worst["canvas"] <= 1e-5, f"{phase}: canvas kernel vs plain "
                                      f"{worst['canvas']}")
-    require(worst["elevation"] <= elev_tol, f"sorted elevation kernel vs "
+    require(worst["elevation"] <= elev_tol, f"{phase}: elevation kernel vs "
                                             f"plain {worst['elevation']}")
-    require(close, "sorted vs scatter canvas outside rtol "
-                   f"{IMPL_RTOL} / atol {IMPL_ATOL}: {worst}")
+    require(close, f"{phase}: canvas vs scatter outside rtol {IMPL_RTOL} / "
+                   f"atol {IMPL_ATOL}: {worst}")
     require(worst["elevation_vs_scatter"] <= IMPL_ELEV_ATOL,
-            f"sorted vs scatter elevation {worst['elevation_vs_scatter']}")
+            f"{phase}: elevation vs scatter "
+            f"{worst['elevation_vs_scatter']}")
     return result
+
+
+def fine_path_pairs(engine, padded: torch.Tensor):
+    """The (local cell, stream iota) pairs the fine_grid affine main path
+    hands K10 for one served scan."""
+    pts = engine.device_points(padded)
+    geom = engine.model.geom
+    ctx = pz.bin_points(pts, geom)
+    local = torch.where(ctx.valid, ctx.cell, geom.num_cells_3d)
+    return local.contiguous(), torch.arange(
+        pts.shape[0], dtype=torch.int32, device=pts.device)
+
+
+def check_sort2(hi: torch.Tensor, lo: torch.Tensor, rng) -> dict:
+    """K10 against its plain version and np.lexsort on the fine_grid main
+    path's pairs and edge cases: full-range words with INT32_MAX and
+    INT32_MIN among real pairs, repeated lo, pairs equal to the pad."""
+    dev = hi.device
+    cases = {"fine_grid_pairs": (hi, lo)}
+    for n in (1, 2, 255, 256, 4097, 131_072):
+        words = rng.integers(-2**31, 2**31 - 1, (2, n), endpoint=True)
+        words[0, ::3] = 2**31 - 1
+        words[0, 1::5] = -2**31
+        words[1, ::4] = words[1, 0]
+        cases[f"full_range_{n}"] = tuple(
+            torch.from_numpy(w.astype(np.int32)).to(dev) for w in words)
+    pad = torch.full((1000,), 2**31 - 1, dtype=torch.int32, device=dev)
+    cases["all_pad_pairs"] = (pad, pad.clone())
+    for name, (h, l_) in cases.items():
+        got = sort.sort2_i32(h, l_)
+        torch.cuda.synchronize()
+        want = sort.sort2_i32_plain(h, l_)
+        hn, ln = h.cpu().numpy(), l_.cpu().numpy()
+        order = np.lexsort((ln, hn))
+        for g, w, ref in zip(got, want, (hn[order], ln[order])):
+            require(torch.equal(g, w) and np.array_equal(g.cpu().numpy(),
+                                                         ref),
+                    f"K10 sort2 {name}: differs in "
+                    f"{int((g != w).sum())} entries")
+    n = hi.numel()
+    m = sort.padded_size(n)
+    stages = (m.bit_length() - 1) * m.bit_length() // 2
+
+    def library():
+        order = torch.sort(hi, stable=True)
+        return order.values, lo[order.indices]
+
+    return {"name": "bitonic_sort2_i32", "max_abs_err": 0,
+            "ms": time_ms(lambda: sort.sort2_i32(hi, lo)),
+            "plain_ms": time_ms(lambda: sort.sort2_i32_plain(hi, lo),
+                                reps=3, warm=1),
+            "library_ms": time_ms(library),
+            "library": "torch.sort(hi, stable=True) and the gather of lo",
+            "shape": [n], **bound(4 * 4 * n, m // 2 * stages)}
+
+
+def main_path_pts8(spts, local_s, mmat, cap: int, ncells: int):
+    """The kitti_sem serving stream in K8's layout: cell-sorted ids, pts8
+    [x, y, z, kept (rank < cap), intensity, 0, 0, 0] and mmat8 with the
+    PFN's rows at the same places, row 3 zero."""
+    cell = local_s[0].contiguous()
+    pos = torch.arange(cell.numel(), device=cell.device)
+    start = torch.searchsorted(cell, cell)
+    kept = ((pos - start) < cap) & (cell < ncells)
+    pts8 = torch.zeros((cell.numel(), 8), device=cell.device)
+    pts8[:, :3] = spts[:, :3]
+    pts8[:, 3] = kept.float()
+    pts8[:, 4:spts.shape[1] + 1] = spts[:, 3:]
+    mmat8 = torch.zeros((8, mmat.shape[1]), device=mmat.device)
+    mmat8[:3] = mmat[:3]
+    mmat8[4:mmat.shape[0] + 1] = mmat[3:]
+    return cell, pts8, mmat8.contiguous()
+
+
+def k8_case(cell, pts8, mmat8, dtype, what: str) -> None:
+    """K8 vs its plain version on one input: run_tot and run_max equal to
+    the bit (the plain version sums in the kernel's order)."""
+    got = affine_aux.affine_segment_scan(cell, pts8, mmat8, out_dtype=dtype,
+                                         chunk=1)
+    torch.cuda.synchronize()
+    want = affine_aux.affine_segment_scan_plain(cell, pts8, mmat8,
+                                                out_dtype=dtype, chunk=1)
+    for name, g, w in zip(("run_tot", "run_max"), got, want):
+        require(torch.equal(g, w), f"K8 {what} {dtype}: {name} differs in "
+                f"{int((g != w).sum())} entries, max |err| "
+                f"{float((g.float() - w.float()).abs().max())}")
+
+
+def check_k8(setup, main_path) -> dict:
+    """K8 at the profile's shape ((102 400, 8) x (8, 64), chunk 1024), on
+    the kitti_sem serving stream, and on edge cases: one row, one cell
+    throughout, N not a multiple of the kernel's tile; f32 and bf16 out,
+    with the JAX kernel's max_prefix (which the port's complete prefix
+    ignores) the same bits."""
+    cell, pts8, mmat8 = setup.cell_k, setup.pts8, setup.mmat8
+    one = torch.zeros_like(cell)
+    odd = 70_001
+    cases = [((cell, pts8, mmat8), "profile"), (main_path, "kitti stream"),
+             ((cell[:1], pts8[:1], mmat8), "one row"),
+             ((one, pts8, mmat8), "one cell"),
+             ((cell[:odd], pts8[:odd], mmat8), f"N={odd}")]
+    for dtype in (torch.bfloat16, torch.float32):
+        for (c, p, m), what in cases:
+            k8_case(c.contiguous(), p.contiguous(), m, dtype, what)
+    capped = affine_aux.affine_segment_scan(cell, pts8, mmat8,
+                                            out_dtype=torch.bfloat16,
+                                            chunk=1024, max_prefix=100)
+    full = affine_aux.affine_segment_scan(cell, pts8, mmat8,
+                                          out_dtype=torch.bfloat16,
+                                          chunk=1024)
+    require(all(torch.equal(a, b) for a, b in zip(capped, full)),
+            "K8 max_prefix changed the result")
+    n, width = pts8.shape[0], mmat8.shape[1]
+
+    def kern(dtype):
+        return lambda: affine_aux.affine_segment_scan(
+            cell, pts8, mmat8, out_dtype=dtype, chunk=1024)
+
+    f32_ms = time_ms(kern(torch.float32))
+    emit({"phase": "kernel_k8_f32", "shape": [n, 8, width], "ms": f32_ms,
+          **bound(n * (4 + 32 + 16 + 4 * width) + 32 * width,
+                  n * (17 * width + 8))})
+    return {"name": "affine_segment_scan", "max_abs_err": 0.0,
+            "ms": time_ms(kern(torch.bfloat16)),
+            "plain_ms": time_ms(lambda: affine_aux.affine_segment_scan_plain(
+                cell, pts8, mmat8, out_dtype=torch.bfloat16, chunk=1024),
+                reps=2, warm=1),
+            "library_ms": None,
+            "library": "none: no PyTorch call fuses the product with a "
+                       "segmented prefix sum and max at every row",
+            "shape": [n, 8, width],
+            **bound(n * (4 + 32 + 16 + 2 * width) + 32 * width,
+                    n * (17 * width + 8))}
+
+
+def check_k9(setup) -> dict:
+    """K9 at probe_train.py's (128, 1 605 632) table and on edge cases:
+    the payload at run starts (every row gets its run's payload), one row,
+    one cell throughout, one channel; equal to the plain version to the
+    bit (max is exact)."""
+    cell, vals = setup.broadcast_inputs()
+    starts = torch.ones_like(cell, dtype=torch.bool)
+    starts[1:] = cell[1:] != cell[:-1]
+    payload = torch.where(starts, vals, -3.0e38)
+    cases = [(cell, vals, "profile"), (cell, payload, "payload"),
+             (cell[:1], vals[:, :1], "one row"),
+             (torch.zeros_like(cell), vals, "one cell"),
+             (cell, vals[:1], "one channel")]
+    for c, v, what in cases:
+        got = affine_aux.segment_broadcast_t(c, v.contiguous(), chunk=1)
+        torch.cuda.synchronize()
+        want = affine_aux.segment_broadcast_t_plain(c, v.contiguous(),
+                                                    chunk=1)
+        require(torch.equal(got, want), f"K9 {what}: differs in "
+                f"{int((got != want).sum())} entries")
+    first = torch.searchsorted(cell, cell)
+    require(torch.equal(affine_aux.segment_broadcast_t(cell, payload),
+                        payload[:, first]), "K9 payload not broadcast")
+    width, n = vals.shape
+    return {"name": "segment_broadcast_t", "max_abs_err": 0.0,
+            "ms": time_ms(lambda: affine_aux.segment_broadcast_t(
+                cell, vals, chunk=2048), reps=5, warm=1),
+            "plain_ms": time_ms(lambda: affine_aux.segment_broadcast_t_plain(
+                cell, vals, chunk=2048), reps=1, warm=1),
+            "library_ms": None,
+            "library": "none: PyTorch has no segmented running max "
+                       "(torch.cummax runs over the whole row)",
+            "shape": [width, n],
+            **bound(4 * n + 2 * 4 * width * n, width * n)}
+
+
+def serve_many(runs, device) -> dict:
+    """`infer_many` bursts: one fused call at B=K per burst (K3 and K2
+    once, K1 and K10 never); the batched canvas equals the per-scan ones
+    to the bit, and each elevation matches per-scan `infer` within
+    SERVE_MANY_ELEV_ATOL (the SegNet convolves a batch in another order)."""
+    out, paths = {"phase": "serve_many"}, {}
+    for name, cfg, sd, scans in runs:
+        engine = GroundInferenceEngine(cfg, sd, device=device)
+        engine.infer_many(scans)                     # warm: cuDNN plans
+        reset_launches()
+        t0 = time.perf_counter()
+        many = engine.infer_many(scans)
+        elapsed = time.perf_counter() - t0
+        paths[f"serve_many_{name}"] = read_launches((K3, K2),
+                                                    f"serve_many_{name}")
+        require(K3.launches == 1 and K2.launches == 1,
+                f"serve_many {name}: K3/K2 launched {K3.launches}/"
+                f"{K2.launches} times for one call")
+        padded = torch.from_numpy(np.stack([engine._prepare(s)[0]
+                                            for s in scans]))
+        with torch.no_grad():
+            pts = engine.device_points(padded)
+            batched = engine.model.canvas(pts)
+            single = torch.cat([engine.model.canvas(p[None]) for p in pts])
+        require(torch.equal(batched, single),
+                f"serve_many {name}: batched canvas differs from per-scan")
+        gap = 0.0
+        for (eb, lb), scan in zip(many, scans):
+            e1, l1 = engine.infer(scan)
+            gap = max(gap, float(np.abs(eb - e1).max()))
+            require(lb.shape == l1.shape and np.isfinite(eb).all(),
+                    f"serve_many {name}: shapes")
+        require(gap <= SERVE_MANY_ELEV_ATOL,
+                f"serve_many {name}: elevation vs per-scan infer {gap}")
+        out[name] = {"scans": len(scans), "grid": [cfg.ny, cfg.nx],
+                     "seconds": elapsed, "scans_per_s": len(scans) / elapsed,
+                     "elevation_vs_infer": gap}
+    out["elevation_atol"] = SERVE_MANY_ELEV_ATOL
+    return {"launches": paths, "result": out}
+
+
+def train_fine_grid(cfg, sd, rng, device) -> dict:
+    """fine_grid trained through 'affine' at B=2 (bf16): the stable
+    batched sort (no K10), K3, K5 and K6; finite losses, every parameter
+    moves; steps/s."""
+    points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
+                                              cfg.num_points)
+    state = train.create_train_state(cfg, 100, state_dict=sd, device=device)
+    step = train.make_train_step(cfg)
+    before = params_of(state)
+    state, loss = step(state, points, labels)           # warm: cuDNN plans
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(state, points, labels)[1] for _ in range(3)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches((K3, K5, K6), "train_fine_grid_affine")
+    losses = [float(v) for v in losses]
+    require(all(np.isfinite(losses)), f"fine_grid losses {losses}")
+    moved = {k: bool((v != before[k]).any())
+             for k, v in params_of(state).items()}
+    require(all(moved.values()), "parameters that did not move: "
+            f"{[k for k, v in moved.items() if not v]}")
+    return {"launches": launches, "result": {
+        "phase": "train_fine_grid_affine", "batch": TRAIN_BATCH,
+        "grid": [cfg.ny, cfg.nx], "steps": 3, "losses": losses,
+        "steps_per_s": 3 / elapsed, "launches": launches,
+        "params_moved": len(moved)}}
+
+
+def profile_phase(setup) -> dict:
+    """The affine stage profile's K8, K10 and K9 cases, few repetitions."""
+    reset_launches()
+    lines = profile_affine.run(profile_affine.K8_CASES
+                               + profile_affine.K10_CASES
+                               + profile_affine.K9_CASES, reps=3,
+                               setup=setup)
+    launches = read_launches((K8, K9, K10, K3, K2), "profile_affine")
+    return {"launches": launches, "result": {
+        "phase": "profile_affine", "cases": lines, "launches": launches}}
 
 
 def pfn_norm_state(state) -> dict:
@@ -729,7 +986,7 @@ def train_scatter(rng, device) -> dict:
         t0 = time.perf_counter()
         losses = [float(step(state, points, labels)[1]) for _ in range(3)]
         elapsed = time.perf_counter() - t0
-        launches = read_launches((), COUNTERS, "train_scatter")
+        launches = read_launches((), "train_scatter")
         require(all(np.isfinite(losses)), f"scatter losses {losses}")
         moved = {k: bool((v != before[k]).any())
                  for k, v in params_of(state).items()}
@@ -772,7 +1029,7 @@ def presets(rng, device) -> dict:
                 f"{name}: train losses {losses}")
         out[name] = {"grid": [cfg.ny, cfg.nx], "fused_impl": cfg.fused_impl,
                      "elevation_mean": float(elev.mean()), **losses}
-    out["launches"] = read_launches((), COUNTERS, "presets")
+    out["launches"] = read_launches((), "presets")
     return out
 
 
@@ -791,6 +1048,12 @@ REPLACES = {
                          "gndnet_tpu_torch/csrc/affine_bwd.cu"),
     "suffix_segment_reduce": ("gndnet_tpu/ops/pallas_segment.py:117",
                               "gndnet_tpu_torch/csrc/suffix_segment.cu"),
+    "bitonic_sort2_i32": ("gndnet_tpu/ops/pallas_sort.py:285",
+                          "gndnet_tpu_torch/csrc/bitonic_sort2.cu"),
+    "affine_segment_scan": ("gndnet_tpu/ops/pallas_affine.py:143",
+                            "gndnet_tpu_torch/csrc/prefix_segment.cu"),
+    "segment_broadcast_t": ("gndnet_tpu/ops/pallas_affine.py:595",
+                            "gndnet_tpu_torch/csrc/prefix_segment.cu"),
 }
 # kernel row -> (wrapper, the path whose run gives its `launches`)
 WRAPPER = {"bitonic_sort_i32": ("sort_i32", "serve"),
@@ -802,7 +1065,11 @@ WRAPPER = {"bitonic_sort_i32": ("sort_i32", "serve"),
                                          "train"),
            "affine_bwd_dmmat": ("affine_bwd_dmmat", "train"),
            "suffix_segment_reduce": ("suffix_segment_reduce",
-                                     "serve_sorted")}
+                                     "serve_sorted"),
+           "bitonic_sort2_i32": ("sort2_i32", "serve_fine_grid_affine"),
+           "affine_segment_scan": ("affine_segment_scan", "profile_affine"),
+           "segment_broadcast_t": ("segment_broadcast_t",
+                                   "profile_affine")}
 
 
 def main() -> int:
@@ -818,9 +1085,7 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     emit({"phase": "build", "seconds": _ext.build_all()})
-    cfg = kitti_sem_config().replace(
-        compute_dtype="bfloat16", matmul_precision="default",
-        fused_impl="affine")
+    cfg = serving_config(kitti_sem_config())
     kernels = run(cfg, cfg.num_points, "cuda")
     print(smi, flush=True)
     emit({"kernels": kernels})
@@ -830,7 +1095,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-13 on `device`; returns the kernels line's entries."""
+    """Phases 3-18 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -853,6 +1118,18 @@ def run(cfg, n_points: int, device) -> list:
     probe = GroundInferenceEngine(sorted_cfg, sd, device=device)
     rows.append(check_segment(*sorted_path_inputs(
         probe, torch.from_numpy(probe._prepare(scans[0])[0]))))
+    fine_aff = serving_config(SHIPPED["fine_grid"]())
+    fine_aff_sd = init_state_dict(fine_aff, seed=SEED)
+    set_bn_stats(fine_aff_sd, rng)
+    fine_aff_scans = [synthetic_scan(fine_aff, rng, n_points)
+                      for _ in range(4)]
+    probe = GroundInferenceEngine(fine_aff, fine_aff_sd, device=device)
+    rows.append(check_sort2(*fine_path_pairs(probe, torch.from_numpy(
+        probe._prepare(fine_aff_scans[0])[0])), rng))
+    setup = profile_affine.Setup(cfg, fine_aff, n_points)
+    rows += [check_k8(setup, main_path_pts8(spts, local_s, mmat, cap,
+                                            cfg.ny * cfg.nx)),
+             check_k9(setup)]
     for row in rows:
         emit({"phase": "kernel", "kernel_ms": row["ms"], **row})
 
@@ -868,31 +1145,49 @@ def run(cfg, n_points: int, device) -> list:
     paths["train_f32"] = tparity["launches"]
     emit(tparity["result"])
 
-    served = serve(sorted_cfg, sd, scans, device, "serve_sorted", (K7,),
-                   COUNTERS[:6])
+    served = serve(sorted_cfg, sd, scans, device, "serve_sorted", {K7: 3})
     paths["serve_sorted"] = served["launches"]
     emit(served["result"])
     shipped = SHIPPED["kitti_sem"]()
     served = serve(shipped, init_state_dict(shipped, seed=SEED), scans[:3],
-                   device, "serve_scatter", (), COUNTERS)
+                   device, "serve_scatter", {})
     paths["serve_scatter"] = served["launches"]
     emit(served["result"])
     fine = SHIPPED["fine_grid"]()
     fine_sd = init_state_dict(fine, seed=SEED)
     fine_scans = [synthetic_scan(fine, rng, n_points) for _ in range(2)]
-    for impl, launched, idle in (("scatter", (), COUNTERS),
-                                 ("sorted", (K7,), COUNTERS[:6])):
+    for impl, per_scan in (("scatter", {}), ("sorted", {K7: 3})):
         served = serve(fine.replace(fused_impl=impl), fine_sd, fine_scans,
-                       device, f"serve_fine_grid_{impl}", launched, idle)
+                       device, f"serve_fine_grid_{impl}", per_scan)
         paths[f"serve_fine_grid_{impl}"] = served["launches"]
         emit(served["result"])
-    parity_sorted(cfg, sd, scans[:2], device)
+    parity_vs_scatter(sorted_cfg, sd, scans[:2], device, "parity_sorted")
     trained = train_scatter(rng, device)
     paths["train_scatter"] = trained["launches"]
     emit(trained["result"])
     shipped_presets = presets(rng, device)
     paths["presets"] = shipped_presets["launches"]
     emit(shipped_presets)
+
+    served = serve(fine_aff, fine_aff_sd, fine_aff_scans, device,
+                   "serve_fine_grid_affine", {K10: 1, K3: 1, K2: 1})
+    paths["serve_fine_grid_affine"] = served["launches"]
+    emit(served["result"])
+    parity_vs_scatter(fine_aff, fine_aff_sd, fine_aff_scans[:2], device,
+                      "parity_fine_grid")
+    trained = train_fine_grid(fine_aff, fine_aff_sd, rng, device)
+    paths["train_fine_grid_affine"] = trained["launches"]
+    emit(trained["result"])
+    scans16 = scans + [synthetic_scan(cfg, rng, n_points) for _ in range(10)]
+    many = serve_many([("kitti_sem_K4", cfg, sd, scans[:4]),
+                       ("kitti_sem_K16", cfg, sd, scans16),
+                       ("fine_grid_K2", fine_aff, fine_aff_sd,
+                        fine_aff_scans[:2])], device)
+    paths.update(many["launches"])
+    emit(many["result"])
+    profiled = profile_phase(setup)
+    paths["profile_affine"] = profiled["launches"]
+    emit(profiled["result"])
 
     kernels = []
     for row in rows:
@@ -906,7 +1201,8 @@ def run(cfg, n_points: int, device) -> list:
             "max_abs_err": row["max_abs_err"], "max_err": row["max_abs_err"],
             "ms": row["ms"], "kernel_ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": row.get("library")})
     return kernels
 
 

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "bitonic_sort_i32": ("bitonic_sort", [_P, _I, _P]),
+    "bitonic_sort2_i32": ("bitonic_sort2", [_P, _P, _P, _P, _P, _I, _I, _P]),
     "cell_histogram_i32": ("cell_histogram", [_P, _P, _I, _I, _I, _P]),
     "affine_scan_gather": ("affine_scan", [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _I, _I, _I, _P]),
@@ -43,6 +44,10 @@ SIGNATURES = {
                                         _I, _P]),
     "suffix_segment_reduce": ("suffix_segment", [_P, _P, _P, _P, _P, _L, _I,
                                                  _I, _I, _I, _P]),
+    "affine_segment_scan": ("prefix_segment", [_P, _P, _P, _P, _P, _P, _P, _L,
+                                               _I, _I, _I, _P]),
+    "segment_broadcast_t": ("prefix_segment", [_P, _P, _P, _P, _P, _L, _I, _I,
+                                               _P]),
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
-"""Single-scan serving engine: scan -> (elevation map, per-point labels).
+"""Serving engine: scan -> (elevation map, per-point labels), one scan at a
+time or a burst of scans in one batched call.
 
 Counterpart of `gndnet_tpu.infer.GroundInferenceEngine` (`_pad` with the
 1e9 sentinel and bucket padding, `_prepare`, the int16 transfer option,
-`transfer_features`, `infer`, `warmup`): shift the cloud by the lidar
-height, run the fused model, label each point against the elevation map,
-and return numpy arrays.  The engine runs on the card unless the caller
-passes device='cpu'.
+`transfer_features`, `infer`, `infer_many`, `warmup`): shift the cloud by
+the lidar height, run the fused model, label each point against the
+elevation map, and return numpy arrays.  The engine runs on the card unless
+the caller passes device='cpu'.
 """
 
 from __future__ import annotations
@@ -90,9 +91,9 @@ class GroundInferenceEngine:
         return self._pad(points[:, :k]), points.shape[0]
 
     def device_points(self, padded: torch.Tensor) -> torch.Tensor:
-        """A prepared (padded) scan -> the (Np, input_features) float32
-        points the model sees, on the device: dequantised, zero-filled,
-        shifted by the lidar height."""
+        """Prepared (padded) scans, (Np, k) or stacked (K, Np, k) -> the
+        (..., Np, input_features) float32 points the model sees, on the
+        device: dequantised, zero-filled, shifted by the lidar height."""
         points = padded.to(self.device, non_blocking=True)
         if self.transfer_dtype == "int16":
             points = points.float() * self.QUANT_SCALE
@@ -112,6 +113,36 @@ class GroundInferenceEngine:
                                self.cfg.voxel_size[0], pred.t(),
                                self.threshold)
         return pred, labels.to(torch.int8)
+
+    @torch.no_grad()
+    def run_many(self, padded: torch.Tensor, reference: bool = False):
+        """Device-side program on K prepared scans of one bucket, stacked
+        (K, Np, k): one fused call at B=K, then each scan labelled against
+        its own map.  Returns (elevation (K, ny, nx) float32, labels
+        (K, Np) int8) on the device.  `reference=True` takes the plain
+        version of every kernel stage."""
+        pts = self.device_points(padded)
+        pred = self.model.fused(pts, reference=reference)
+        labels = torch.stack([
+            segment_cloud(p, self.cfg.grid_range, self.cfg.voxel_size[0],
+                          e.t(), self.threshold) for p, e in zip(pts, pred)])
+        return pred, labels.to(torch.int8)
+
+    def infer_many(self, scans) -> list:
+        """Batched inference of a burst of scans in one device call: all
+        scans must fall into one padded bucket.  Returns [(elevation
+        (ny, nx) np.float32, labels (N_i,) np.int8), ...] in submission
+        order."""
+        prepared = [self._prepare(s) for s in scans]
+        shapes = {p.shape for p, _ in prepared}
+        if len(shapes) != 1:
+            raise ValueError(f"scans fall into mixed buckets {shapes}; "
+                             "pad or split the burst")
+        preds, labels = self.run_many(
+            torch.from_numpy(np.stack([p for p, _ in prepared])))
+        preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
+        return [(preds[i], labels[i][:n])
+                for i, (_, n) in enumerate(prepared)]
 
     def infer(self, points: np.ndarray) -> tuple:
         """points: (N, >=3) float32 (extra columns beyond

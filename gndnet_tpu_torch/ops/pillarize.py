@@ -4,8 +4,7 @@ Counterparts of `gndnet_tpu.ops.pillarize`: `PillarGeometry`,
 `PointContext`, `_bin`, `bin_points`, `bin_points_batch`, `point_ranks`,
 `fused_frontend` and `canvas_from_activations` (the 'scatter' impl),
 `fused_frontend_sorted` and `canvas_from_sorted_activations` (the 'sorted'
-impl), `affine_pfn_weights` and the packed-key branches of `affine_canvas`
-(the 'affine' impl).
+impl), `affine_pfn_weights` and `affine_canvas` (the 'affine' impl).
 
 The scatter and sorted frontends decorate every point (its features, its
 offset from its cell's kept-point mean and from the cell centre), mask the
@@ -19,7 +18,9 @@ reduces contiguous runs with K7.
 `affine_canvas` turns raw scans into the post-PFN pseudo-image without
 building the (pillars, points) tensor: sort one packed (cell, index) key per
 point and item (K1 at B=1, a batched `torch.sort` at B>1, as the JAX
-package leaves it to `lax.sort`), gather the rows in cell order, count each
+package leaves it to `lax.sort`; on grids whose key overflows 31 bits, K10
+on the (cell, index) pairs at B=1 and a stable batched sort of the cell ids
+at B>1), gather the rows in cell order, count each
 cell's points (K3), take each cell's capped PFN max and xyz sums in stream
 order (K2 when serving; K4/K5 with K6 as their backward when autograd
 records a gradient), and add the per-cell offset of the affine PFN split in
@@ -374,36 +375,43 @@ def cell_stream(points: torch.Tensor, ctx: PointContext,
     """The cell-sorted stream of B scans: (spts (B*N, F) rows sorted by
     (item, cell, scan index), starts and counts (B * num_cells_3d,) int32
     of every cell's run in it).  Dropped points sort after their item's
-    cells.  K1 sorts at B=1, a batched `torch.sort` at B>1; K3 counts.
-    `reference=True` takes the plain versions."""
+    cells.  Where (cell, index) packs into one 31-bit key, K1 sorts it at
+    B=1 and a batched `torch.sort` at B>1; on grids where it does not
+    (fine_grid), K10 sorts the (cell, index) pairs at B=1 and a stable
+    batched `torch.sort` the cell ids at B>1, as the JAX package leaves the
+    batched sorts to `lax.sort`.  K3 counts.  `reference=True` takes the
+    plain versions."""
     b = ctx.batch
     m, f = points.shape
     n = m // b
     c3 = geom.num_cells_3d
-    idxcap = 1 << max(n - 1, 1).bit_length()
-    if c3 * idxcap + (n - 1) >= 2**31:
-        raise NotImplementedError(
-            f"the packed (cell, index) key of {c3} cells x {n} points "
-            "overflows 31 bits: grids such as fine_grid are ROADMAP.md "
-            "queue 1, 'The fine_grid fallback' (the unpacked sort)")
-    sort_fn = sort.sort_i32_plain if reference else sort.sort_i32
     counts_fn = (affine.histogram_counts_plain if reference
                  else affine.histogram_counts)
-    # one unique key per point and item: cell-major, scan order within a
-    # cell, so the sort is deterministic and each run lists its points in
-    # order; every item has its own cell space [0, c3] (c3: its drop id)
+    # every item has its own cell space [0, c3] (c3: its drop id); within a
+    # cell the rows keep scan order, so each run lists its points in order
     dev = points.device
     item = torch.arange(b, dtype=torch.int32, device=dev)
     local = torch.where(ctx.valid, ctx.cell - item.repeat_interleave(n) * c3,
                         c3).reshape(b, n)
-    key = (local * idxcap
-           + torch.arange(n, dtype=torch.int32, device=dev)).to(torch.int32)
-    if b == 1:
-        skey = sort_fn(key[0])[None]
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    idxcap = 1 << max(n - 1, 1).bit_length()
+    if c3 * idxcap + (n - 1) < 2**31:
+        # one unique key per point and item, cell-major: the sort is
+        # deterministic and needs no stability
+        key = (local * idxcap + iota).to(torch.int32)
+        if b == 1:
+            sort_fn = sort.sort_i32_plain if reference else sort.sort_i32
+            skey = sort_fn(key[0])[None]
+        else:
+            skey = torch.sort(key, dim=-1).values
+        local_s = torch.div(skey, idxcap, rounding_mode="floor")
+        order = (skey - local_s * idxcap).long()
+    elif b == 1:
+        sort_fn = sort.sort2_i32_plain if reference else sort.sort2_i32
+        local_s, order = sort_fn(local[0], iota)
+        local_s, order = local_s[None], order.long()[None]
     else:
-        skey = torch.sort(key, dim=-1).values
-    local_s = torch.div(skey, idxcap, rounding_mode="floor")
-    order = (skey - local_s * idxcap).long()
+        local_s, order = torch.sort(local, dim=-1, stable=True)
     spts = points.reshape(b, n, f)[item.long()[:, None], order].reshape(m, f)
     ends, counts = affine.histogram_ends(local_s, geom.ny, geom.nx,
                                          counts_fn=counts_fn)
@@ -421,8 +429,8 @@ def affine_canvas(points: torch.Tensor, ctx: PointContext,
     """Raw flat points (B*N, F) float32 of B scans -> (B, ny, nx, C) canvas
     in compute_dtype.
 
-    Reproduces `gndnet_tpu.ops.pillarize.affine_canvas` with the packed
-    key: the kept set is each cell's first `max_points` points in scan order
+    Reproduces `gndnet_tpu.ops.pillarize.affine_canvas` on every grid: the
+    kept set is each cell's first `max_points` points in scan order
     (all of them without `exact_point_cap`), a cell's canvas row is
     relu(max over kept points of p_aug @ M + w(cell)), floored at
     relu(bias) when the cell holds fewer than `max_points` points (the

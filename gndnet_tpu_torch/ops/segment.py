@@ -47,8 +47,9 @@ def tile_rows(width: int) -> int:
     return max(256, min(1024, 16384 // width))
 
 
-def _layout(width: int):
-    """The kernel's (tile rows T, slices per tile S, slice rows L)."""
+def scan_layout(width: int):
+    """The kernel's (tile rows T, slices per tile S, slice rows L); K8 and
+    K9 (csrc/prefix_segment.cu) tile their prefix scans the same way."""
     tile = tile_rows(width)
     per = -(-tile // max(1, min(_THREADS // width, tile)))
     return tile, -(-tile // per), per
@@ -73,7 +74,7 @@ def suffix_segment_reduce_plain(x: torch.Tensor, cell: torch.Tensor,
         return x.clone()
     dev = x.device
     comb = torch.maximum if op == "max" else torch.add
-    tile, nsl, per = _layout(width)
+    tile, nsl, per = scan_layout(width)
     nt = -(-n // tile)
     # the row at (tile, slice, position); n where no row is (past the
     # tile or the stream), which reads zeros and joins no run

@@ -1,0 +1,261 @@
+"""Stage-level profile of the affine serving path on the card.
+
+    python -m gndnet_tpu_torch.profile_affine [--only S] [--reps N]
+        [--out FILE]
+
+The counterpart of `scripts/profile_affine.py` (with the segmented
+broadcast case of `scripts/probe_train.py`): each case times one stage of
+the affine path, or one kernel alone, at kitti_sem's serving shapes
+(102 400-point padded scans, bf16, 'default' precision, random weights
+from a seed) and, for the fine_grid cases, at fine_grid's (250x250 cells,
+where the packed key overflows and K10 sorts).  Scans come from
+`synthetic.py`.  Every case prints one JSON line: its mean milliseconds
+per call by CUDA events over `--reps` warm calls, and the card's name and
+power limit as nvidia-smi gives them.  `--only S` runs the cases whose
+name contains S.
+
+The JAX script sweeps the chunk size of each TPU kernel (512-2048 lanes);
+the card's kernels tile by their own rules, so the sweep collapses to one
+case per type: `kernel_only_102k_{f32,bf16}` (K8) and `kernel_t_102k`
+(K2).  Needs a CUDA device; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from gndnet_tpu_torch.config import fine_grid_config, kitti_sem_config
+from gndnet_tpu_torch.infer import GroundInferenceEngine
+from gndnet_tpu_torch.ops import affine, affine_aux, sort
+from gndnet_tpu_torch.ops import pillarize as pz
+from gndnet_tpu_torch.ops.postproc import segment_cloud
+from gndnet_tpu_torch.profile_serve import card
+from gndnet_tpu_torch.synthetic import synthetic_scan
+from gndnet_tpu_torch.weights import init_state_dict
+
+BCAST_SHAPE = (128, 16 * 100_352)   # probe_train.py's (C, B * Np) table
+K8_CASES = ("kernel_only_102k_f32", "kernel_only_102k_bf16")
+K9_CASES = ("bcast_128x1.6M",)
+K10_CASES = ("affine_canvas_fine_grid", "sort2_idx_gather_102k")
+
+
+def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean milliseconds of fn() over `reps` warm calls, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serving_config(base):
+    """`base` at the serving settings of the affine main path (bf16 convs,
+    'default' precision, 'affine')."""
+    return base.replace(compute_dtype="bfloat16", matmul_precision="default",
+                        fused_impl="affine")
+
+
+class Setup:
+    """The engines, scans and kernel inputs the cases share, made once
+    from fixed seeds on the engines' device (the card): kitti_sem and
+    fine_grid at the serving settings unless other configurations are
+    given, `n`-point scans."""
+
+    def __init__(self, cfg=None, fine_cfg=None, n: int = 100_000,
+                 bcast_shape=BCAST_SHAPE):
+        self.cfg = cfg or serving_config(kitti_sem_config())
+        self.engine = GroundInferenceEngine(
+            self.cfg, init_state_dict(self.cfg, seed=0))
+        dev = self.device = self.engine.device
+        rng = np.random.default_rng(0)
+        self.scans = [synthetic_scan(self.cfg, rng, n) for _ in range(16)]
+        self.padded = [torch.from_numpy(self.engine._prepare(s)[0]).to(dev)
+                       for s in self.scans]
+        self.pts = self.engine.device_points(self.padded[0])
+        self.pts16 = self.engine.device_points(torch.stack(self.padded))
+        self.fine_cfg = fine_cfg or serving_config(fine_grid_config())
+        self.fine = GroundInferenceEngine(
+            self.fine_cfg, init_state_dict(self.fine_cfg, seed=0))
+        fine_padded = self.fine._prepare(synthetic_scan(self.fine_cfg, rng,
+                                                        n))[0]
+        self.fine_padded = torch.from_numpy(fine_padded).to(dev)
+        self.fine_pts = self.fine.device_points(self.fine_padded)
+        self.bcast_shape = bcast_shape
+        self._bcast = None
+
+        # the JAX profile's kernel inputs at the padded scan length: sorted
+        # random cells of the grid, pts8 [xyz ~ N(0, 1), kept 1, extra ~
+        # U(0, 1), 0, 0, 0], mmat8 ~ N(0, 0.3^2) (8, 64)
+        n_pad, cells = self.pts.shape[0], self.cfg.ny * self.cfg.nx
+        self.cell_k = torch.from_numpy(np.sort(
+            np.random.default_rng(1).integers(0, cells + 1, n_pad)).astype(
+                np.int32)).to(dev)
+        pts8 = np.concatenate(
+            [np.random.default_rng(2).normal(size=(n_pad, 3)),
+             np.ones((n_pad, 1)),
+             np.random.default_rng(3).uniform(size=(n_pad, 1)),
+             np.zeros((n_pad, 3))], axis=1).astype(np.float32)
+        self.pts8 = torch.from_numpy(pts8).to(dev)
+        self.mmat8 = torch.from_numpy((np.random.default_rng(4).normal(
+            size=(8, 64)) * 0.3).astype(np.float32)).to(dev)
+        counts = affine.histogram_counts_plain(self.cell_k[None],
+                                               self.cfg.ny, self.cfg.nx)
+        self.counts_k = counts.reshape(-1)
+        self.starts_k = (torch.cumsum(self.counts_k, 0)
+                         - self.counts_k).to(torch.int32)
+
+    def broadcast_inputs(self):
+        """probe_train.py's broadcast table: sorted random cells and
+        N(0, 1) values (C, B * Np), made on first use (1.6 GB)."""
+        if self._bcast is None:
+            c, n = self.bcast_shape
+            cell = np.sort(np.random.default_rng(5).integers(
+                0, self.cfg.ny * self.cfg.nx + 1, n)).astype(np.int32)
+            gen = torch.Generator(self.device).manual_seed(5)
+            vals = torch.randn(c, n, generator=gen, device=self.device)
+            self._bcast = (torch.from_numpy(cell).to(self.device), vals)
+        return self._bcast
+
+    def sorted_gather(self, pts, geom, pair: bool):
+        """Bin, sort the (cell, index) keys of one scan (K1 on the packed
+        key, or K10 on the pair), gather the rows."""
+        ctx = pz.bin_points(pts, geom)
+        n = pts.shape[0]
+        local = torch.where(ctx.valid, ctx.cell, geom.num_cells_3d)
+        iota = torch.arange(n, dtype=torch.int32, device=pts.device)
+        if pair:
+            _, order = sort.sort2_i32(local, iota)
+        else:
+            idxcap = 1 << max(n - 1, 1).bit_length()
+            skey = sort.sort_i32((local * idxcap + iota).to(torch.int32))
+            order = skey % idxcap
+        return pts[order.long()]
+
+
+def cases(s: Setup) -> dict:
+    """Case name -> a function that runs it once on the card."""
+    cfg, model, geom, dev = s.cfg, s.engine.model, s.engine.model.geom, \
+        s.device
+    elev = torch.zeros((cfg.nx, cfg.ny), device=dev)
+    canvas0 = torch.zeros((1, cfg.ny, cfg.nx, 64), dtype=torch.bfloat16,
+                          device=dev)
+    fine_canvas0 = torch.zeros((1, s.fine_cfg.ny, s.fine_cfg.nx, 64),
+                               dtype=torch.bfloat16, device=dev)
+    n_pad, cells = s.pts.shape[0], cfg.ny * cfg.nx
+    loc = torch.sort(torch.from_numpy(np.random.default_rng(0).integers(
+        0, cells + 1, (1, n_pad)).astype(np.int32)).to(dev), dim=-1).values
+    loc16 = torch.sort(torch.from_numpy(np.random.default_rng(0).integers(
+        0, cells + 1, (16, n_pad)).astype(np.int32)).to(dev), dim=-1).values
+    pts4 = s.pts8[:, :4].contiguous()
+    mmat4 = s.mmat8[:4].contiguous()
+
+    def canvas(net, pts):
+        return net.canvas(pts[None])
+
+    def fwd_plus_segment():
+        pred = model.fused(s.pts[None])[0]
+        return segment_cloud(s.pts, cfg.grid_range, cfg.voxel_size[0],
+                             pred.t(), s.engine.threshold)
+
+    def bin_sort():
+        ctx = pz.bin_points(s.pts, geom)
+        local = torch.where(ctx.valid, ctx.cell, geom.num_cells_3d)
+        order = torch.sort(local, stable=True).indices
+        return s.pts[order]
+
+    def sort_b16():
+        ctx = pz.bin_points_batch(s.pts16, geom)
+        return pz.cell_stream(s.pts16.reshape(-1, 4), ctx, geom)
+
+    return {
+        "fused_fwd_102k": lambda: model.fused(s.pts[None]),
+        "fused_fwd_B16": lambda: model.fused(s.pts16),
+        "segment_cloud_102k": lambda: segment_cloud(
+            s.pts, cfg.grid_range, cfg.voxel_size[0], elev, 0.08),
+        "bin_sort_102k": bin_sort,
+        "affine_canvas_102k": lambda: canvas(model, s.pts),
+        "affine_canvas_fine_grid": lambda: canvas(s.fine.model,
+                                                  s.fine_pts),
+        "segnet_100x100": lambda: model.encoder_decoder(canvas0),
+        "segnet_250x250": lambda: s.fine.model.encoder_decoder(
+            fine_canvas0),
+        "histogram_ends_102k": lambda: affine.histogram_ends(
+            loc, cfg.ny, cfg.nx),
+        "histogram_ends_B16": lambda: affine.histogram_ends(
+            loc16, cfg.ny, cfg.nx),
+        "kernel_only_102k_f32": lambda: affine_aux.affine_segment_scan(
+            s.cell_k, s.pts8, s.mmat8, out_dtype=torch.float32,
+            chunk=1024),
+        "kernel_only_102k_bf16": lambda: affine_aux.affine_segment_scan(
+            s.cell_k, s.pts8, s.mmat8, out_dtype=torch.bfloat16,
+            chunk=1024),
+        "kernel_t_102k": lambda: affine.affine_scan_gather(
+            pts4, s.starts_k, s.counts_k, mmat4, 100, torch.bfloat16),
+        "kernel_t_102k_nocap": lambda: affine.affine_scan_gather(
+            pts4, s.starts_k, s.counts_k, mmat4, None, torch.bfloat16),
+        "sort1_packed_gather_102k": lambda: s.sorted_gather(
+            s.pts, geom, pair=False),
+        "sort2_idx_gather_102k": lambda: s.sorted_gather(
+            s.pts, geom, pair=True),
+        "sort2_idx_gather_fine_grid": lambda: s.sorted_gather(
+            s.fine_pts, s.fine.model.geom, pair=True),
+        "engine_run_102k": lambda: s.engine.run(s.padded[0]),
+        "engine_run_fine_grid": lambda: s.fine.run(s.fine_padded),
+        "fwd_plus_segment_102k": fwd_plus_segment,
+        "sort_B16": sort_b16,
+        "infer_many_K16": lambda: s.engine.infer_many(s.scans),
+        "bcast_128x1.6M": lambda: affine_aux.segment_broadcast_t(
+            *s.broadcast_inputs(), chunk=2048),
+    }
+
+
+def run(only=(), reps: int = 20, setup: Setup | None = None) -> list:
+    """Time the cases whose name contains one of `only` (all when empty);
+    returns the JSON lines."""
+    smi = card()
+    setup = setup or Setup()
+    lines = []
+    for name, fn in cases(setup).items():
+        if only and not any(o in name for o in only):
+            continue
+        with torch.no_grad():
+            ms = time_ms(fn, reps=reps, warm=2)
+        line = {"case": name, "ms": ms, "reps": reps, "card": smi}
+        if name == "infer_many_K16":
+            line["ms_per_scan"] = ms / len(setup.scans)
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+    return lines
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", action="append", default=[],
+                    help="run the cases whose name contains this string "
+                         "(repeatable)")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON lines to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_affine needs a CUDA device")
+    lines = [{"card": card(), "torch": torch.__version__}]
+    print(json.dumps(lines[0]), flush=True)
+    lines += run(args.only, args.reps)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.writelines(json.dumps(line) + "\n" for line in lines)
+
+
+if __name__ == "__main__":
+    main()

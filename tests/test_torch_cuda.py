@@ -13,8 +13,9 @@ import torch
 
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.infer import GroundInferenceEngine
+from gndnet_tpu_torch.models.segnet import no_tf32
 from gndnet_tpu_torch import train
-from gndnet_tpu_torch.ops import affine, segment, sort
+from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -236,3 +237,155 @@ def test_sorted_engine_kernel_path_matches_plain_path(dev):
     assert segment.suffix_segment_reduce.launches == before + 3
     e2, _ = eng.run(padded, reference=True)
     assert torch.equal(e1, e2)
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 4096, 4097, 70_000])
+def test_sort2_kernel(dev, n):
+    """K10 against its plain version and np.lexsort: full-range words with
+    INT32_MAX / INT32_MIN and repeated lo, and the call site's (cell,
+    iota) pairs."""
+    rng = np.random.default_rng(n)
+    full = rng.integers(-2**31, 2**31 - 1, (2, n), endpoint=True)
+    full[0, ::3] = 2**31 - 1
+    full[0, 1::5] = -2**31
+    full[1, ::4] = full[1, 0]
+    cells = np.stack([rng.integers(0, 62_502, n), np.arange(n)])
+    for hi, lo in (full, cells):
+        hi = hi.astype(np.int32)
+        lo = lo.astype(np.int32)
+        th, tl = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+        before = sort.sort2_i32.launches
+        got = sort.sort2_i32(th, tl)
+        assert sort.sort2_i32.launches == before + 1
+        want = sort.sort2_i32_plain(th, tl)
+        order = np.lexsort((lo, hi))
+        for g, w, ref in zip(got, want, (hi[order], lo[order])):
+            assert torch.equal(g, w)
+            np.testing.assert_array_equal(g.cpu().numpy(), ref)
+
+
+def _k8_stream(dev, n, width, seed):
+    """Sorted ids with a run over many tiles, the kept mask rank < 7 in
+    column 3, mmat8 row 3 zero."""
+    rng = np.random.default_rng(seed)
+    cell = np.sort(rng.integers(0, n // 25 + 1, n))
+    cell[n // 5:n // 2] = cell[n // 5]
+    cell = np.sort(cell).astype(np.int32)
+    rank = np.arange(n) - np.searchsorted(cell, cell, side="left")
+    pts8 = np.zeros((n, 8), np.float32)
+    pts8[:, :3] = rng.normal(size=(n, 3)) * 10
+    pts8[:, 3] = rank < 7
+    pts8[:, 4] = rng.uniform(size=n)
+    mmat8 = (rng.normal(size=(8, width)) * 0.3).astype(np.float32)
+    mmat8[3] = 0
+    return tuple(torch.from_numpy(x).to(dev) for x in (cell, pts8, mmat8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_prefix", [None, 7])
+@pytest.mark.parametrize("n,width", [(1024, 16), (20_480, 64),
+                                     (70_144, 64)])
+def test_affine_segment_scan_kernel(dev, dtype, max_prefix, n, width):
+    """K8 against its plain version, which sums in the kernel's order:
+    sums, counts and maxima equal to the bit, and the same bits on a
+    second run."""
+    cell, pts8, mmat8 = _k8_stream(dev, n, width, n + width)
+    before = affine_aux.affine_segment_scan.launches
+    got = affine_aux.affine_segment_scan(cell, pts8, mmat8, out_dtype=dtype,
+                                         chunk=128, max_prefix=max_prefix)
+    again = affine_aux.affine_segment_scan(cell, pts8, mmat8,
+                                           out_dtype=dtype, chunk=128)
+    assert affine_aux.affine_segment_scan.launches == before + 2
+    want = affine_aux.affine_segment_scan_plain(cell, pts8, mmat8,
+                                                out_dtype=dtype, chunk=128)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, a) and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,width", [(128, 6), (70_144, 128)])
+def test_segment_broadcast_kernel(dev, n, width):
+    """K9 against its plain version: equal to the bit (max is exact);
+    payload-at-start streams broadcast each run's payload."""
+    rng = np.random.default_rng(n)
+    cell = np.sort(rng.integers(0, n // 40 + 1, n))
+    cell[n // 3:] = cell[-1]
+    cell = torch.from_numpy(cell.astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.normal(size=(width, n)).astype(
+        np.float32)).to(dev)
+    starts = torch.ones(n, dtype=torch.bool, device=dev)
+    starts[1:] = cell[1:] != cell[:-1]
+    payload = torch.where(starts, vals, -3.0e38)
+    before = affine_aux.segment_broadcast_t.launches
+    for v in (vals, payload):
+        got = affine_aux.segment_broadcast_t(cell, v, chunk=128)
+        assert torch.equal(got, affine_aux.segment_broadcast_t_plain(
+            cell, v, chunk=128))
+    assert affine_aux.segment_broadcast_t.launches == before + 2
+    first = torch.searchsorted(cell, cell)
+    assert torch.equal(got, payload[:, first])
+
+
+def _fine_engine(dtype="float32", precision="highest"):
+    from gndnet_tpu_torch.config import fine_grid_config
+    cfg = fine_grid_config().replace(fused_impl="affine",
+                                     compute_dtype=dtype,
+                                     matmul_precision=precision)
+    return cfg, GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0))
+
+
+def test_fine_grid_affine_engine_kernel_path_matches_plain_path(dev):
+    """fine_grid served through 'affine' (K10, K3, K2) against its plain
+    path at f32 with TF32 off: the same elevation to the bit."""
+    cfg, eng = _fine_engine()
+    scan = synthetic_scan(cfg, np.random.default_rng(0), 100_000)
+    padded = torch.from_numpy(eng._prepare(scan)[0])
+    before = (sort.sort2_i32.launches, sort.sort_i32.launches)
+    with no_tf32(True):
+        e1, l1 = eng.run(padded)
+        assert (sort.sort2_i32.launches, sort.sort_i32.launches) == (
+            before[0] + 1, before[1])
+        e2, l2 = eng.run(padded, reference=True)
+    assert torch.equal(e1, e2) and torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("grid", ["16x16", "fine_grid"])
+def test_infer_many_matches_infer(dev, grid):
+    """Scans of one bucket through `infer_many`, one fused call at B=K (the
+    batched sorts: no K1 or K10; K3 and K2 once), against per-scan
+    `infer` (K1, or K10 on fine_grid, once per scan), f32 with TF32 off:
+    the batched canvas equal to the per-scan ones."""
+    if grid == "fine_grid":
+        cfg, eng = _fine_engine()
+        sizes, pair_sort = (100_000, 99_000), sort.sort2_i32
+    else:
+        cfg = GndNetConfig(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
+                           grid_range=(0.0, -8.0, 16.0, 8.0),
+                           max_points_voxel=20, lidar_height=1.7,
+                           fused_impl="affine")
+        eng = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0),
+                                    bucket=1024)
+        sizes, pair_sort = (3100, 3500, 4000), sort.sort_i32
+    rng = np.random.default_rng(1)
+    scans = [synthetic_scan(cfg, rng, n) for n in sizes]
+    counted = (sort.sort_i32, sort.sort2_i32, affine.histogram_counts,
+               affine.affine_scan_gather)
+    with no_tf32(True):
+        before = [fn.launches for fn in counted]
+        many = eng.infer_many(scans)
+        assert [fn.launches - b for fn, b in zip(counted, before)] == \
+            [0, 0, 1, 1]
+        before = pair_sort.launches
+        ones = [eng.infer(s) for s in scans]
+        assert pair_sort.launches == before + len(scans)
+    pts = eng.device_points(torch.from_numpy(np.stack(
+        [eng._prepare(s)[0] for s in scans])))
+    with torch.no_grad():
+        assert torch.equal(eng.model.canvas(pts), torch.cat(
+            [eng.model.canvas(p[None]) for p in pts]))
+    # the canvases are equal; cuDNN may convolve a batch in another order
+    # than one scan, and the SegNet's max-pool argmax routing can turn
+    # that into up to 1e-2 of elevation (chip_smoke.py's IMPL_ELEV_ATOL)
+    for (eb, lb), (e1, l1) in zip(many, ones):
+        np.testing.assert_allclose(eb, e1, rtol=0, atol=1e-2)
+        assert lb.shape == l1.shape and lb.dtype == np.int8

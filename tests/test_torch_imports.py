@@ -52,6 +52,8 @@ def test_importing_the_port_loads_no_jax():
                          check=True).stdout.split()
     assert "gndnet_tpu_torch.infer" in out
     assert "gndnet_tpu_torch.ops.affine" in out
+    assert "gndnet_tpu_torch.ops.affine_aux" in out
+    assert "gndnet_tpu_torch.profile_affine" in out
     assert "gndnet_tpu_torch.train" in out
     assert "gndnet_tpu_torch.data.provider" in out
     assert [m for m in out if _is_jax_side(m)] == []
@@ -113,8 +115,10 @@ def test_default_device_is_the_card():
 
 def test_out_of_slice_paths_raise_not_implemented():
     """B=2 serving and training run through 'affine' and 'scatter';
-    'sorted' serves but does not train, and grids whose packed key
-    overflows 31 bits (fine_grid) still raise on the affine impl."""
+    'sorted' serves but does not train.  Grids whose packed (cell, index)
+    key overflows 31 bits no longer raise on the affine impl: fine_grid
+    (62 500 cells) with 32 769-point scans serves at B=1 (K10's pair
+    sort) and trains at B=2 (the stable batched sort) on the CPU."""
     rng = np.random.default_rng(0)
     small = dict(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
                  grid_range=(0.0, -8.0, 16.0, 8.0), max_points_voxel=20)
@@ -132,6 +136,15 @@ def test_out_of_slice_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="no gradient"):
         net.fused(pts, train=True)
     fine = tcfg.fine_grid_config().replace(fused_impl="affine")
-    with pytest.raises(NotImplementedError, match="31 bits"):
-        GroundEstimatorNet(fine, device="cpu").fused(
-            torch.zeros((1, 102_400, 4)))
+    n = 32_769
+    assert fine.nx * fine.ny * (1 << (n - 1).bit_length()) >= 2**31
+    scans = np.zeros((2, n, 4), np.float32)
+    scans[..., :2] = rng.uniform(-50, 50, (2, n, 2))
+    scans[..., 2] = rng.uniform(-2, 1, (2, n))
+    net = GroundEstimatorNet(fine, device="cpu")
+    elev = net.fused(torch.from_numpy(scans[:1]))
+    assert elev.shape == (1, 250, 250) and bool(torch.isfinite(elev).all())
+    pred = net.fused(torch.from_numpy(scans), train=True)
+    pred.sum().backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in net.parameters())
