@@ -12,7 +12,12 @@ Phases, each printing one JSON line:
      pair sort on the fine_grid affine path's (cell, iota) pairs; K8 and
      K9 at profile_affine's shapes) against its plain PyTorch version on
      the card, with edge cases, its time, the plain version's time and a
-     library call's time (CUDA events over warm repetitions);
+     library call's time (CUDA events over warm repetitions).  K1 and K10
+     are the cluster radix sort up to its capacity, which the card must
+     confirm, and the bitonic kernels above it; both paths are checked,
+     and their rows add the bitonic kernel's time at the main path's shape
+     (`earlier_ms`), and the kernels one call of the wrapper and of the
+     library call enqueue, with their device time (torch.profiler);
   4. serve: kitti_sem single-scan serving (bf16 convs, 'default' precision,
      random weights from a seed) of synthetic 100 000-point scans through
      GroundInferenceEngine on the card; K1-K3 must launch once per scan and
@@ -73,6 +78,7 @@ from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import _cell_indices
 from gndnet_tpu_torch.profile_affine import serving_config, time_ms
+from gndnet_tpu_torch.profile_serve import kernel_times
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -132,35 +138,76 @@ def main_path_inputs(engine, padded: torch.Tensor):
     return key, local_s[None].contiguous(), spts, mmat.float().contiguous()
 
 
+def device_profile(fn) -> tuple:
+    """The CUDA kernels one warm call of fn() enqueues and their device
+    milliseconds, by torch.profiler over 20 calls."""
+    fn()
+    prof = kernel_times(fn, 20)
+    require(isinstance(prof.get("device_ops_per_call"), float),
+            "the profiler saw no kernel")
+    return prof["device_ops_per_call"], prof["device_ms_per_call"]
+
+
 def check_sort(key: torch.Tensor, rng) -> dict:
+    """K1 (the cluster radix sort up to RADIX_MAX_I32 keys, the bitonic
+    network above) against its plain version and torch.sort: the kitti_sem
+    packed keys (and with two indices swapped across CTAs), duplicates,
+    both int32 extremes, a constant digit, short and power-of-two lengths,
+    the capacity and 2^20 keys (bitonic)."""
     dev = key.device
+    cap = _ext.function("cluster_radix_sort_capacity")(4)
+    require(cap == sort.RADIX_MAX_I32, f"K1 capacity on this card {cap}, "
+                                       f"ops/sort.py {sort.RADIX_MAX_I32}")
+    extremes = rng.integers(-5, 5, 102_400).astype(np.int32)
+    extremes[rng.permutation(102_400)[:120]] = np.repeat(
+        [2**31 - 1, -2**31], 60)
+    constant = rng.integers(-2**20, 2**20, 102_400)
+    swapped = key.clone()                 # low bits out of order once,
+    swapped[6399], swapped[6400] = key[6400], key[6399]   # across CTAs
     cases = {"kitti_packed_keys": key,
+             "kitti_packed_keys_swapped": swapped,
              "duplicates_102400": torch.from_numpy(
-                 rng.integers(-50, 50, 102_400).astype(np.int32)).to(dev)}
-    for n in (1, 255, 256, 131_072):
+                 rng.integers(-50, 50, 102_400).astype(np.int32)).to(dev),
+             "extremes_102400": torch.from_numpy(extremes).to(dev),
+             "constant_digit_102400": torch.from_numpy(
+                 ((constant & ~0xFF00) | 0x3700).astype(np.int32)).to(dev)}
+    for n in (1, 2, 255, 257, 4097, 131_072, sort.RADIX_MAX_I32, 1 << 20):
         cases[f"random_{n}"] = torch.from_numpy(rng.integers(
-            -2**31, 2**31 - 1, n).astype(np.int32)).to(dev)
-    worst = 0
+            -2**31, 2**31 - 1, n, endpoint=True).astype(np.int32)).to(dev)
     for name, x in cases.items():
+        before = sort.sort_i32.launches
         got = sort.sort_i32(x)
         torch.cuda.synchronize()
+        require(sort.sort_i32.launches == before + 1,
+                f"K1 {name}: {sort.sort_i32.launches - before} launches")
         want = sort.sort_i32_plain(x)
-        err = int((got.long() - want.long()).abs().max()) if x.numel() else 0
-        require(err == 0 and torch.equal(got, torch.sort(x).values),
-                f"K1 sort {name}: max |err| {err}")
-        worst = max(worst, err)
+        require(torch.equal(got, want) and torch.equal(
+            got, torch.sort(x).values), f"K1 sort {name}: differs in "
+            f"{int((got != want).sum())} entries")
+    launches, device_ms = device_profile(lambda: sort.sort_i32(key))
+    require(round(launches) == 1, f"K1 enqueues {launches} kernels a call")
+    lib_launches, lib_device_ms = device_profile(lambda: torch.sort(key))
     n = key.numel()
-    m = sort.padded_size(n)
-    stages = (m.bit_length() - 1) * m.bit_length() // 2
-    bytes_moved = 2 * 4 * n
-    ops = m // 2 * stages          # one comparison per compare-exchange
+    bitonic = _ext.function("bitonic_sort_i32")
+    buf = sort._padded(key)
+    stream = _ext.stream_ptr(key)
+    _ext.check(bitonic(buf.data_ptr(), buf.numel(), stream),
+               "bitonic_sort_i32")
     return {
-        "name": "bitonic_sort_i32", "max_abs_err": worst,
+        "name": "cluster_radix_sort_i32", "max_abs_err": 0,
         "ms": time_ms(lambda: sort.sort_i32(key)),
+        "earlier_ms": time_ms(lambda: bitonic(buf.data_ptr(), buf.numel(),
+                                              stream)),
+        "earlier": "bitonic_sort_i32 (csrc/bitonic_sort.cu) on the keys "
+                   "padded to a power of two",
         "plain_ms": time_ms(lambda: sort.sort_i32_plain(key), reps=3,
                             warm=1),
         "library_ms": time_ms(lambda: torch.sort(key)),
-        **bound(bytes_moved, ops)}
+        "library": "torch.sort",
+        "device_launches_per_call": launches, "device_ms": device_ms,
+        "library_device_launches_per_call": lib_launches,
+        "library_device_ms": lib_device_ms,
+        "capacity": cap, "shape": [n], **bound(2 * 4 * n, 0)}
 
 
 def check_hist(local_s: torch.Tensor, ny: int, nx: int, rng) -> dict:
@@ -723,23 +770,43 @@ def fine_path_pairs(engine, padded: torch.Tensor):
 
 
 def check_sort2(hi: torch.Tensor, lo: torch.Tensor, rng) -> dict:
-    """K10 against its plain version and np.lexsort on the fine_grid main
-    path's pairs and edge cases: full-range words with INT32_MAX and
-    INT32_MIN among real pairs, repeated lo, pairs equal to the pad."""
+    """K10 (the cluster radix sort up to RADIX_MAX_PAIRS pairs, the bitonic
+    network above) against its plain version and np.lexsort on the
+    fine_grid main path's pairs and edge cases: full-range words with
+    INT32_MAX and INT32_MIN among real pairs, negative hi, repeated lo, lo
+    in order and out of order only across two CTAs, pairs equal to the
+    bitonic pad, the capacity and 2^19 pairs (bitonic)."""
     dev = hi.device
+    cap = _ext.function("cluster_radix_sort_capacity")(8)
+    require(cap == sort.RADIX_MAX_PAIRS, f"K10 capacity on this card {cap}, "
+                                         f"ops/sort.py {sort.RADIX_MAX_PAIRS}")
     cases = {"fine_grid_pairs": (hi, lo)}
-    for n in (1, 2, 255, 256, 4097, 131_072):
+    for n in (1, 2, 255, 257, 4097, 131_072, sort.RADIX_MAX_PAIRS, 1 << 19):
         words = rng.integers(-2**31, 2**31 - 1, (2, n), endpoint=True)
         words[0, ::3] = 2**31 - 1
         words[0, 1::5] = -2**31
         words[1, ::4] = words[1, 0]
         cases[f"full_range_{n}"] = tuple(
             torch.from_numpy(w.astype(np.int32)).to(dev) for w in words)
+    neg = rng.integers(-2**31, 0, 102_400)
+    cases["negative_hi_repeated_lo"] = tuple(
+        torch.from_numpy(w.astype(np.int32)).to(dev)
+        for w in (neg, rng.integers(-3, 3, 102_400)))
+    # lo in order skips lo's passes; one descent across the first CTA
+    # boundary (16 CTAs of 6400) must bring them back
+    swapped = lo.clone()
+    swapped[6399], swapped[6400] = lo[6400], lo[6399]
+    cases["lo_descends_across_ctas"] = (hi, swapped)
+    cases["sorted_lo_repeats"] = (hi, torch.from_numpy(np.sort(
+        rng.integers(-3000, 3000, hi.numel())).astype(np.int32)).to(dev))
     pad = torch.full((1000,), 2**31 - 1, dtype=torch.int32, device=dev)
     cases["all_pad_pairs"] = (pad, pad.clone())
     for name, (h, l_) in cases.items():
+        before = sort.sort2_i32.launches
         got = sort.sort2_i32(h, l_)
         torch.cuda.synchronize()
+        require(sort.sort2_i32.launches == before + 1,
+                f"K10 {name}: {sort.sort2_i32.launches - before} launches")
         want = sort.sort2_i32_plain(h, l_)
         hn, ln = h.cpu().numpy(), l_.cpu().numpy()
         order = np.lexsort((ln, hn))
@@ -748,21 +815,39 @@ def check_sort2(hi: torch.Tensor, lo: torch.Tensor, rng) -> dict:
                                                          ref),
                     f"K10 sort2 {name}: differs in "
                     f"{int((g != w).sum())} entries")
+    launches, device_ms = device_profile(lambda: sort.sort2_i32(hi, lo))
+    require(round(launches) == 1, f"K10 enqueues {launches} kernels a call")
     n = hi.numel()
     m = sort.padded_size(n)
-    stages = (m.bit_length() - 1) * m.bit_length() // 2
+    bitonic = _ext.function("bitonic_sort2_i32")
+    keys = torch.empty((m,), dtype=torch.int64, device=dev)
+    hi_out, lo_out = torch.empty_like(hi), torch.empty_like(lo)
+    stream = _ext.stream_ptr(hi)
+
+    def earlier():
+        return bitonic(hi.data_ptr(), lo.data_ptr(), keys.data_ptr(),
+                       hi_out.data_ptr(), lo_out.data_ptr(), n, m, stream)
+
+    _ext.check(earlier(), "bitonic_sort2_i32")
 
     def library():
         order = torch.sort(hi, stable=True)
         return order.values, lo[order.indices]
 
-    return {"name": "bitonic_sort2_i32", "max_abs_err": 0,
+    lib_launches, lib_device_ms = device_profile(library)
+    return {"name": "cluster_radix_sort2_i32", "max_abs_err": 0,
             "ms": time_ms(lambda: sort.sort2_i32(hi, lo)),
+            "earlier_ms": time_ms(earlier),
+            "earlier": "bitonic_sort2_i32 (csrc/bitonic_sort2.cu), padded "
+                       "to a power of two",
             "plain_ms": time_ms(lambda: sort.sort2_i32_plain(hi, lo),
                                 reps=3, warm=1),
             "library_ms": time_ms(library),
             "library": "torch.sort(hi, stable=True) and the gather of lo",
-            "shape": [n], **bound(4 * 4 * n, m // 2 * stages)}
+            "device_launches_per_call": launches, "device_ms": device_ms,
+            "library_device_launches_per_call": lib_launches,
+            "library_device_ms": lib_device_ms,
+            "capacity": cap, "shape": [n], **bound(4 * 4 * n, 0)}
 
 
 def main_path_pts8(spts, local_s, mmat, cap: int, ncells: int):
@@ -1034,8 +1119,8 @@ def presets(rng, device) -> dict:
 
 
 REPLACES = {
-    "bitonic_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
-                         "gndnet_tpu_torch/csrc/bitonic_sort.cu"),
+    "cluster_radix_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
+                               "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
     "cell_histogram_i32": ("gndnet_tpu/ops/pallas_affine.py:904",
                            "gndnet_tpu_torch/csrc/cell_histogram.cu"),
     "affine_scan_gather": ("gndnet_tpu/ops/pallas_affine.py:522",
@@ -1048,15 +1133,15 @@ REPLACES = {
                          "gndnet_tpu_torch/csrc/affine_bwd.cu"),
     "suffix_segment_reduce": ("gndnet_tpu/ops/pallas_segment.py:117",
                               "gndnet_tpu_torch/csrc/suffix_segment.cu"),
-    "bitonic_sort2_i32": ("gndnet_tpu/ops/pallas_sort.py:285",
-                          "gndnet_tpu_torch/csrc/bitonic_sort2.cu"),
+    "cluster_radix_sort2_i32": ("gndnet_tpu/ops/pallas_sort.py:285",
+                                "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
     "affine_segment_scan": ("gndnet_tpu/ops/pallas_affine.py:143",
                             "gndnet_tpu_torch/csrc/prefix_segment.cu"),
     "segment_broadcast_t": ("gndnet_tpu/ops/pallas_affine.py:595",
                             "gndnet_tpu_torch/csrc/prefix_segment.cu"),
 }
 # kernel row -> (wrapper, the path whose run gives its `launches`)
-WRAPPER = {"bitonic_sort_i32": ("sort_i32", "serve"),
+WRAPPER = {"cluster_radix_sort_i32": ("sort_i32", "serve"),
            "cell_histogram_i32": ("histogram_counts", "serve"),
            "affine_scan_gather": ("affine_scan_gather", "serve"),
            "affine_scan_argmax_pair": ("affine_scan_argmax_pair",
@@ -1066,7 +1151,8 @@ WRAPPER = {"bitonic_sort_i32": ("sort_i32", "serve"),
            "affine_bwd_dmmat": ("affine_bwd_dmmat", "train"),
            "suffix_segment_reduce": ("suffix_segment_reduce",
                                      "serve_sorted"),
-           "bitonic_sort2_i32": ("sort2_i32", "serve_fine_grid_affine"),
+           "cluster_radix_sort2_i32": ("sort2_i32",
+                                       "serve_fine_grid_affine"),
            "affine_segment_scan": ("affine_segment_scan", "profile_affine"),
            "segment_broadcast_t": ("segment_broadcast_t",
                                    "profile_affine")}
@@ -1202,7 +1288,12 @@ def run(cfg, n_points: int, device) -> list:
             "ms": row["ms"], "kernel_ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "library": row.get("library")})
+            "library": row.get("library"),
+            **{k: row[k] for k in ("earlier_ms", "earlier",
+                                   "device_launches_per_call", "device_ms",
+                                   "library_device_launches_per_call",
+                                   "library_device_ms", "capacity")
+               if k in row}})
     return kernels
 
 

@@ -35,6 +35,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "bitonic_sort_i32": ("bitonic_sort", [_P, _I, _P]),
     "bitonic_sort2_i32": ("bitonic_sort2", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "cluster_radix_sort_i32": ("cluster_radix_sort", [_P, _P, _I, _P]),
+    "cluster_radix_sort2_i32": ("cluster_radix_sort", [_P, _P, _P, _P, _I,
+                                                       _P]),
+    "cluster_radix_sort_capacity": ("cluster_radix_sort", [_I]),
     "cell_histogram_i32": ("cell_histogram", [_P, _P, _I, _I, _I, _P]),
     "affine_scan_gather": ("affine_scan", [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _I, _I, _I, _P]),

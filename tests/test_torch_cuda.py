@@ -14,7 +14,7 @@ import torch
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.infer import GroundInferenceEngine
 from gndnet_tpu_torch.models.segnet import no_tf32
-from gndnet_tpu_torch import train
+from gndnet_tpu_torch import _ext, train
 from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
@@ -262,6 +262,127 @@ def test_sort2_kernel(dev, n):
         for g, w, ref in zip(got, want, (hi[order], lo[order])):
             assert torch.equal(g, w)
             np.testing.assert_array_equal(g.cpu().numpy(), ref)
+
+
+def _radix_keys(case, rng):
+    """K1's inputs: the kitti_sem packed keys (and with two indices
+    swapped across CTAs), duplicates with both int32 extremes, a constant
+    digit, short lengths, and both sides of the cluster radix sort's
+    capacity."""
+    if case.startswith("packed_102400"):
+        # low 17 bits in order (their passes skipped), or out of order only
+        # across the boundary of CTAs 0 and 1 (16 CTAs of 6400)
+        index = np.arange(102_400)
+        if case.endswith("swap"):
+            index[[6399, 6400]] = index[[6400, 6399]]
+        return rng.integers(0, 10_001, 102_400) * 131_072 + index
+    if case == "extremes":
+        x = rng.integers(-5, 5, 5000)
+        x[rng.permutation(5000)[:120]] = np.repeat([2**31 - 1, -2**31], 60)
+        return x
+    if case == "constant_digit":
+        return (rng.integers(-2**20, 2**20, 70_000) & ~0xFF00) | 0x3700
+    n = {"limit": sort.RADIX_MAX_I32,
+         "above_limit": sort.RADIX_MAX_I32 + 1}.get(case)
+    n = int(case.split("_")[1]) if n is None else n
+    return rng.integers(-2**31, 2**31 - 1, n, endpoint=True)
+
+
+@pytest.mark.parametrize("case", ["packed_102400", "packed_102400_swap",
+                                  "extremes",
+                                  "constant_digit", "n_1", "n_2", "n_255",
+                                  "n_257", "n_4097", "limit", "above_limit"])
+def test_radix_sort_kernel(dev, case):
+    """sort_i32 (the cluster radix kernel up to RADIX_MAX_I32 keys, the
+    bitonic kernel above) against its plain version and torch.sort, one
+    launch a call."""
+    x = torch.from_numpy(_radix_keys(case, np.random.default_rng(5)).astype(
+        np.int32)).to(dev)
+    before = sort.sort_i32.launches
+    got = sort.sort_i32(x)
+    assert sort.sort_i32.launches == before + 1
+    assert torch.equal(got, sort.radix_sort_plain(x)
+                       if x.numel() <= sort.RADIX_MAX_I32
+                       else sort.sort_i32_plain(x))
+    assert torch.equal(got, torch.sort(x).values)
+
+
+def _radix_pairs(case, rng):
+    """K10's inputs: the fine_grid (cell, iota) pairs, negative hi,
+    repeated lo, lo in order (its passes skipped) and out of order only
+    across two CTAs, both int32 extremes, a constant digit, short lengths,
+    and both sides of the capacity."""
+    if case == "cells_102400":
+        return rng.integers(0, 62_501, 102_400), np.arange(102_400)
+    if case == "negative_hi_repeated_lo":
+        return rng.integers(-2**31, 0, 50_000), rng.integers(-3, 3, 50_000)
+    if case == "constant_digit":
+        hi = (rng.integers(-2**20, 2**20, 30_000) & ~0xFF) | 0x5A
+        return hi, rng.integers(0, 2**16, 30_000)
+    if case == "sorted_lo_repeats":
+        return (rng.integers(-2**31, 2**31 - 1, 60_000, endpoint=True),
+                np.sort(rng.integers(-3000, 3000, 60_000)))
+    if case == "cta_boundary_descent":
+        # 102 400 pairs on 16 CTAs of 6400: lo in order but across the
+        # boundary of CTAs 0 and 1, which only the key before a slice shows
+        lo = np.arange(102_400)
+        lo[[6399, 6400]] = lo[[6400, 6399]]
+        return rng.integers(0, 62_501, 102_400), lo
+    n = {"limit": sort.RADIX_MAX_PAIRS,
+         "above_limit": sort.RADIX_MAX_PAIRS + 1}.get(case)
+    n = int(case.split("_")[1]) if n is None else n
+    words = rng.integers(-2**31, 2**31 - 1, (2, n), endpoint=True)
+    words[0, ::3] = 2**31 - 1
+    words[0, 1::5] = -2**31
+    words[1, ::4] = words[1, 0]
+    return words[0], words[1]
+
+
+@pytest.mark.parametrize("case", ["cells_102400", "negative_hi_repeated_lo",
+                                  "constant_digit", "sorted_lo_repeats",
+                                  "cta_boundary_descent", "n_1", "n_2",
+                                  "n_255", "n_257", "n_4097", "limit",
+                                  "above_limit"])
+def test_radix_sort2_kernel(dev, case):
+    """sort2_i32 (the cluster radix kernel up to RADIX_MAX_PAIRS pairs, the
+    bitonic kernel above) against its plain version and np.lexsort, one
+    launch a call."""
+    hi, lo = (w.astype(np.int32) for w in _radix_pairs(
+        case, np.random.default_rng(6)))
+    th, tl = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+    before = sort.sort2_i32.launches
+    got = sort.sort2_i32(th, tl)
+    assert sort.sort2_i32.launches == before + 1
+    want = (sort.radix_sort2_plain(th, tl) if hi.size <= sort.RADIX_MAX_PAIRS
+            else sort.sort2_i32_plain(th, tl))
+    order = np.lexsort((lo, hi))
+    for g, w, ref in zip(got, want, (hi[order], lo[order])):
+        assert torch.equal(g, w)
+        np.testing.assert_array_equal(g.cpu().numpy(), ref)
+
+
+def test_radix_capacity_and_refusal(dev):
+    """The card schedules the cluster of 16 that ops/sort.py's capacities
+    assume; the C entries refuse one key more, and the wrappers take no
+    launch for an empty input."""
+    cap = _ext.function("cluster_radix_sort_capacity")
+    assert (cap(4), cap(8)) == (sort.RADIX_MAX_I32, sort.RADIX_MAX_PAIRS)
+    n = sort.RADIX_MAX_PAIRS + 1
+    x = torch.zeros(n, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+    stream = _ext.stream_ptr(x)
+    assert _ext.function("cluster_radix_sort2_i32")(
+        x.data_ptr(), x.data_ptr(), out.data_ptr(), out.data_ptr(), n,
+        stream) != 0
+    n = sort.RADIX_MAX_I32 + 1
+    x = torch.zeros(n, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+    assert _ext.function("cluster_radix_sort_i32")(
+        x.data_ptr(), out.data_ptr(), n, stream) != 0
+    before = (sort.sort_i32.launches, sort.sort2_i32.launches)
+    assert sort.sort_i32(x[:0]).numel() == 0
+    assert sort.sort2_i32(x[:0], x[:0])[0].numel() == 0
+    assert (sort.sort_i32.launches, sort.sort2_i32.launches) == before
 
 
 def _k8_stream(dev, n, width, seed):
