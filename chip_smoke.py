@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
      confirm, and the bitonic kernels above it; both paths are checked,
      and their rows add the bitonic kernel's time at the main path's shape
      (`earlier_ms`), and the kernels one call of the wrapper and of the
-     library call enqueue, with their device time (torch.profiler);
+     library call enqueue, with their device time (torch.profiler).  The
+     K2 and K7 rows add the device operations one call enqueues and their
+     device time: one for K2, at most two (a memset and the kernel) for K7;
   4. serve: kitti_sem single-scan serving (bf16 convs, 'default' precision,
      random weights from a seed) of synthetic 100 000-point scans through
      GroundInferenceEngine on the card; K1-K3 must launch once per scan and
@@ -279,6 +281,9 @@ def check_scan(spts, local_s, ny, nx, mmat, cap) -> dict:
         return affine.affine_scan_gather_plain(spts, starts, counts, mmat,
                                                cap, torch.bfloat16)
 
+    launches, device_ms = device_profile(kern)
+    require(round(launches) == 1, f"K2 enqueues {launches} device "
+                                  "operations a call, not 1")
     kept = int(counts.clamp(max=cap).sum())
     a, width = mmat.shape
     ncells = counts.numel()
@@ -287,7 +292,8 @@ def check_scan(spts, local_s, ny, nx, mmat, cap) -> dict:
     ops = kept * (width * (2 * a - 1 + 1) + 3)
     return {"name": "affine_scan_gather", "max_abs_err": worst,
             "ms": time_ms(kern), "plain_ms": time_ms(plain, reps=5, warm=1),
-            "library_ms": None, **bound(bytes_moved, ops)}
+            "library_ms": None, "device_launches_per_call": launches,
+            "device_ms": device_ms, **bound(bytes_moved, ops)}
 
 
 def train_inputs(cfg, sd, points):
@@ -671,8 +677,10 @@ def k7_case(x, cell, op: str, what: str) -> float:
 def check_segment(xyzk, cell, masked) -> dict:
     """K7 at the sorted frontend's shapes (the (N, 64) activation max, the
     (N, 4) xyzk sums forward and flipped with negated ids) and on edge
-    cases: one row, one cell throughout, a drop run over most tiles, N not
-    a multiple of the tile, bf16 max."""
+    cases: one row, one cell throughout, a drop run over most tiles (both
+    chains of whole-run tiles longer than the look-back's 32-tile window),
+    N not a multiple of the tile, bf16 max; repeated calls give the same
+    bits.  One kernel and at most one memset a call (torch.profiler)."""
     n = cell.shape[0]
     one = torch.zeros_like(cell)
     drop = cell.clone()
@@ -691,21 +699,30 @@ def check_segment(xyzk, cell, masked) -> dict:
              (xyzk[:odd], cell[:odd], "sum", f"N={odd}")]
     worst = max(k7_case(x.contiguous(), c.contiguous(), op, what)
                 for x, c, op, what in cases)
-    again = segment.suffix_segment_reduce(xyzk, cell, "sum", 1)
-    require(torch.equal(again, segment.suffix_segment_reduce(
-        xyzk, cell, "sum", 1)), "K7 sums differ between runs")
+    for x, c, op in ((xyzk, cell, "sum"), (masked, drop, "max"),
+                     (xyzk, one, "sum")):
+        first = segment.suffix_segment_reduce(x, c, op, 1)
+        require(all(torch.equal(first, segment.suffix_segment_reduce(
+            x, c, op, 1)) for _ in range(5)), f"K7 {op} differs between runs")
+
+    def k7(x, op):
+        return lambda: segment.suffix_segment_reduce(x, cell, op)
+
+    sum_ops, sum_device_ms = device_profile(k7(xyzk, "sum"))
+    launches, device_ms = device_profile(k7(masked, "max"))
+    require(max(launches, sum_ops) <= 2, f"K7 enqueues {launches} (max) / "
+            f"{sum_ops} (sum) device operations a call, more than 2")
     width = masked.shape[1]
-    sum_ms = time_ms(lambda: segment.suffix_segment_reduce(xyzk, cell,
-                                                           "sum"))
     emit({"phase": "kernel_k7_sum", "shape": list(xyzk.shape),
-          "sum_ms": sum_ms, **bound(2 * 4 * xyzk.numel() + 4 * n,
-                                    xyzk.numel())})
+          "sum_ms": time_ms(k7(xyzk, "sum")),
+          "device_launches_per_call": sum_ops, "device_ms": sum_device_ms,
+          **bound(2 * 4 * xyzk.numel() + 4 * n, xyzk.numel())})
     return {"name": "suffix_segment_reduce", "max_abs_err": worst,
-            "ms": time_ms(lambda: segment.suffix_segment_reduce(
-                masked, cell, "max")),
+            "ms": time_ms(k7(masked, "max")),
             "plain_ms": time_ms(lambda: segment.suffix_segment_reduce_plain(
                 masked, cell, "max"), reps=5, warm=1),
             "library_ms": None, "shape": [n, width],
+            "device_launches_per_call": launches, "device_ms": device_ms,
             **bound(2 * 4 * n * width + 4 * n, n * width)}
 
 

@@ -46,7 +46,7 @@ SIGNATURES = {
                                            _I, _I, _I, _I, _I, _P]),
     "affine_bwd_dmmat": ("affine_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                         _I, _P]),
-    "suffix_segment_reduce": ("suffix_segment", [_P, _P, _P, _P, _P, _L, _I,
+    "suffix_segment_reduce": ("suffix_segment", [_P, _P, _P, _P, _L, _I, _I,
                                                  _I, _I, _I, _P]),
     "affine_segment_scan": ("prefix_segment", [_P, _P, _P, _P, _P, _P, _P, _L,
                                                _I, _I, _I, _P]),

@@ -7,46 +7,56 @@
 // reads the scan at row start + min(count, cap) - 1 of every cell.  The TPU
 // kernel walks the stream in chunks on one core, carrying run state from
 // chunk to chunk, and writes the full (N, C) running max.  Here every cell
-// is independent, so one block owns one cell and only the per-cell results
-// are written: the (N, C) scan is never materialised.
+// is independent, and only the per-cell results are written: the (N, C)
+// scan is never materialised.
 //
 // For cell c with run [start, start + count) in the sorted stream, the kept
-// rows are the first n = min(count, cap) (all of them when cap < 0).  Thread
-// `ch` (one per output channel) computes, for each kept row p in stream
-// order,
+// rows are the first n = min(count, cap) (all of them when cap < 0).  For
+// each kept row p in stream order and each output channel,
 //   a = round(fma(m[A-1], round(p[A-1]), ... fma(m[0], round(p[0]),
 //             +0.0) ...))
-// where round() is the output type's rounding (bf16 or none), and keeps the
-// running max of a.  That is the TPU kernel's arithmetic: operands rounded
-// to out_dtype, an f32 dot (its A terms accumulated in order with fused
-// multiply-adds, as XLA's CPU dot does), the result rounded to out_dtype
-// (pallas_affine.py:250-258); the accumulator starts at +0.0 as XLA's
-// does, so an all-zero product gives +0.0 and never -0.0.  No TF32.
-// Threads 0-2 sum x, y, z of the kept rows in f32, in stream order;
-// tot[3] is n.  A cell with no points gets tot = 0 and smax = -3e38 (the
-// TPU kernel's _BIG_NEG), which the canvas epilogue masks by occupancy.
+// where round() is the output type's rounding (bf16 or none), and the
+// kernel keeps the running max of a.  That is the TPU kernel's arithmetic:
+// operands rounded to out_dtype, an f32 dot (its A terms accumulated in
+// order with fused multiply-adds, as XLA's CPU dot does), the result
+// rounded to out_dtype (pallas_affine.py:250-258); the accumulator starts
+// at +0.0 as XLA's does, so an all-zero product gives +0.0 and never -0.0.
+// No TF32.  x, y and z of the kept rows are summed in f32, in stream
+// order; tot[3] is n.  A cell with no points gets tot = 0 and smax = -3e38
+// (the TPU kernel's _BIG_NEG), which the canvas epilogue masks by
+// occupancy.
 //
 // pts (N, A) f32 row-major, A <= 8 (xyz, extra features, optional
 // distance); starts, counts (ncells,) int32 from the cell histogram (every
 // row of a run is a valid point); mmat (A, C) f32; tot (ncells, 4) f32;
 // smax (ncells, C) f32 or bf16.
 //
-// Bound at the kitti_sem shape (C = 64, A = 4, cap 100): the function must
-// read the kept rows (at most 1.6 MB), starts and counts (80 KB) and write
-// tot (160 KB) and bf16 smax (1.28 MB); its ~50 MFLOP are negligible.  The
-// bytes take about 1 us at 3.35 TB/s, so with 10 000 short runs it is bound
-// by latency: each block's chain of dependent row steps.  The design stages
-// each cell's rows through shared memory with one coalesced cooperative load
-// (128 rows per pass), so the per-row loop reads shared memory only, and
-// keeps enough small blocks (64 threads, 4 KB) resident to hide the loads.
+// K2, serving (`scan_cells`).  Bound at the kitti_sem shape (C = 64, A =
+// 4, cap 100): the function must read the kept rows (at most 1.6 MB),
+// starts and counts (80 KB) and write tot (160 KB) and bf16 smax (1.28
+// MB); its ~50 MFLOP are negligible.  The bytes take about 1 us at 3.35
+// TB/s, so with 10 000 short runs, most of them empty, it is bound by
+// latency.  The design: a warp owns a cell, and a persistent grid of
+// warps strides over the cells, so no block is launched per cell and no
+// barrier is taken.  Lane l owns channels (2l, 2l + 1) of a 64-channel
+// group (blockIdx.y; one group at C <= 64), their rounded mmat held in
+// registers, loaded once per warp; a bf16 smax row is one coalesced
+// 128-byte store.  Each lane loads the counts and starts of one of the
+// warp's next 32 cells, and the warp takes them by shuffle.  Lane j loads
+// kept row r0 + j (32 rows a step, the next step's rows loaded before the
+// current step is reduced), and each row is broadcast by shuffle.  An
+// empty cell writes its row at once.  The per-channel FMA chain, the
+// exact max and the in-order xyz sums (lanes 0-2) are the arithmetic
+// above, so the plain version is equal to the bit.
 //
-// K4 and K5 replace `affine_scan_t(want_argmax=True)` and
+// K4 and K5 (`scan_gather`, one block of C threads per cell, rows staged
+// through shared memory 128 at a time) replace
+// `affine_scan_t(want_argmax=True)` and
 // `affine_scan_t(want_argmax=True, packed_argmax=True)` as the forward of
 // `_make_scan_gather`'s VJP reads them.  Both return K2's tot and smax and,
 // per (cell, channel), `argpos`: the global stream row of the FIRST kept row
-// that attains the max (-1 for an empty cell).  They are instantiations of
-// the same kernel with a mode flag, so serving's K2 instantiation compiles
-// without their code:
+// that attains the max (-1 for an empty cell).  They are the two modes of
+// one kernel:
 //   K4 (PAIR, f32 or no cap): a row replaces the best only when its value
 //     is strictly greater, so ties keep the earlier row and -0.0 ties +0.0
 //     (the TPU kernel's `am_r >= am` combine, earlier window winning);
@@ -67,7 +77,7 @@ namespace {
 constexpr int ROWS = 128;   // rows staged per pass
 constexpr int MAX_A = 8;
 constexpr float BIG_NEG = -3.0e38f;
-enum Mode { SERVE = 0, PAIR = 1, PACKED = 2 };
+enum Mode { PAIR = 1, PACKED = 2 };
 
 template <bool BF16>
 __device__ __forceinline__ float round_out(float v) {
@@ -132,9 +142,7 @@ __global__ void scan_gather(const float* __restrict__ pts, int A,
       for (int k = 0; k < MAX_A; ++k)
         if (k < A) acc = __fmaf_rn(m[k], round_out<BF16>(p[k]), acc);
       const float v = round_out<BF16>(acc);
-      if constexpr (MODE == SERVE) {
-        best = fmaxf(best, v);
-      } else if constexpr (MODE == PAIR) {
+      if constexpr (MODE == PAIR) {
         if (r0 + r == 0 || v > best) {
           best = v;
           best_row = static_cast<int>(start) + r0 + r;
@@ -155,12 +163,148 @@ __global__ void scan_gather(const float* __restrict__ pts, int A,
   }
   if (ch < C) {
     store_out<BF16>(best, smax, static_cast<size_t>(cell) * C + ch);
-    if constexpr (MODE != SERVE)
-      argpos[static_cast<size_t>(cell) * C + ch] = best_row;
+    argpos[static_cast<size_t>(cell) * C + ch] = best_row;
   }
   if (ch < 4)
     tot[static_cast<size_t>(cell) * 4 + ch] =
         ch < 3 ? sum : static_cast<float>(n);
+}
+
+constexpr int WARPS = 8;        // warps per block of scan_cells
+constexpr unsigned FULL = 0xffffffffu;
+
+// kept row r of a cell's run into p (zeros from row n on)
+template <int A>
+__device__ __forceinline__ void load_row(float* p, const float* src, int r,
+                                         int n) {
+#pragma unroll
+  for (int k = 0; k < A; ++k)
+    p[k] = r < n ? src[static_cast<size_t>(r) * A + k] : 0.0f;
+}
+
+struct Cells {
+  const float* pts;
+  const int* starts;
+  const int* counts;
+  const float* mmat;
+  float* tot;
+  void* smax;
+  int ncells, C, cap;
+};
+
+template <bool BF16, int A>
+__global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
+  const float* __restrict__ pts = a.pts;
+  const int C = a.C, cap = a.cap, ncells = a.ncells;
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = static_cast<long long>(gridDim.x) * WARPS;
+  const long long warp = static_cast<long long>(blockIdx.x) * WARPS +
+                         (threadIdx.x >> 5);
+  const int ch0 = blockIdx.y * 64 + 2 * lane, ch1 = ch0 + 1;
+  float m0[A], m1[A];
+#pragma unroll
+  for (int k = 0; k < A; ++k) {
+    m0[k] = ch0 < C ? round_out<BF16>(a.mmat[k * C + ch0]) : 0.0f;
+    m1[k] = ch1 < C ? round_out<BF16>(a.mmat[k * C + ch1]) : 0.0f;
+  }
+  // the warp's cells: warp, warp + nwarps, ...; 32 of them a batch
+  for (long long base = warp; base < ncells; base += 32 * nwarps) {
+    const long long mine = base + lane * nwarps;
+    int my_count = 0, my_start = 0;
+    if (mine < ncells) {
+      my_count = a.counts[mine];
+      my_start = a.starts[mine];
+    }
+    for (int j = 0; j < 32; ++j) {
+      const long long cell = base + j * nwarps;
+      if (cell >= ncells) break;
+      const int count = __shfl_sync(FULL, my_count, j);
+      const int n = (cap >= 0 && count > cap) ? cap : count;
+      const float* src =
+          pts + static_cast<size_t>(__shfl_sync(FULL, my_start, j)) * A;
+      float best0 = -INFINITY, best1 = -INFINITY, sum = 0.0f;
+      float p[A], q[A];
+      load_row<A>(p, src, lane, n);
+      for (int r0 = 0; r0 < n; r0 += 32) {
+        if (r0 + 32 < n) load_row<A>(q, src, r0 + 32 + lane, n);
+        const int nr = min(32, n - r0);
+#pragma unroll 4
+        for (int r = 0; r < nr; ++r) {
+          float acc0 = 0.0f, acc1 = 0.0f, xyz[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int k = 0; k < A; ++k) {
+            const float pk = __shfl_sync(FULL, p[k], r);
+            if (k < 3) xyz[k] = pk;
+            const float pr = round_out<BF16>(pk);
+            acc0 = __fmaf_rn(m0[k], pr, acc0);
+            acc1 = __fmaf_rn(m1[k], pr, acc1);
+          }
+          best0 = fmaxf(best0, round_out<BF16>(acc0));
+          best1 = fmaxf(best1, round_out<BF16>(acc1));
+          if (lane < 3)
+            sum = __fadd_rn(sum, lane == 0 ? xyz[0]
+                                 : lane == 1 ? xyz[1] : xyz[2]);
+        }
+#pragma unroll
+        for (int k = 0; k < A; ++k) p[k] = q[k];
+      }
+      if (n == 0) best0 = best1 = BIG_NEG;
+      const size_t row = static_cast<size_t>(cell) * C;
+      if (C % 2 == 0 && ch1 < C) {
+        if (BF16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.smax) + row + ch0) =
+              __floats2bfloat162_rn(best0, best1);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(a.smax) + row +
+                                     ch0) = make_float2(best0, best1);
+      } else {
+        if (ch0 < C) store_out<BF16>(best0, a.smax, row + ch0);
+        if (ch1 < C) store_out<BF16>(best1, a.smax, row + ch1);
+      }
+      if (blockIdx.y == 0 && lane < 4)
+        a.tot[static_cast<size_t>(cell) * 4 + lane] =
+            lane < 3 ? sum : static_cast<float>(n);
+    }
+  }
+}
+
+// a persistent grid: as many blocks as fill the card, at most one warp a
+// cell
+template <bool BF16, int A>
+cudaError_t launch_cells(const Cells& a, cudaStream_t st) {
+  static int resident = 0;   // blocks the card holds at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, scan_cells<BF16, A>, WARPS * 32, 0);
+    if (err != cudaSuccess) return err;
+    resident = sms * per_sm;
+  }
+  const long long want = (static_cast<long long>(a.ncells) + WARPS - 1) /
+                         WARPS;
+  const dim3 grid(static_cast<unsigned>(want < resident ? want : resident),
+                  (a.C + 63) / 64);
+  scan_cells<BF16, A><<<grid, WARPS * 32, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_cells(const Cells& a, int A, cudaStream_t st) {
+  switch (A) {
+    case 1: return launch_cells<BF16, 1>(a, st);
+    case 2: return launch_cells<BF16, 2>(a, st);
+    case 3: return launch_cells<BF16, 3>(a, st);
+    case 4: return launch_cells<BF16, 4>(a, st);
+    case 5: return launch_cells<BF16, 5>(a, st);
+    case 6: return launch_cells<BF16, 6>(a, st);
+    case 7: return launch_cells<BF16, 7>(a, st);
+    default: return launch_cells<BF16, 8>(a, st);
+  }
 }
 
 }  // namespace
@@ -172,20 +316,13 @@ extern "C" int affine_scan_gather(const void* pts, const void* starts,
                                   int C, int cap, int out_bf16, void* stream) {
   if (A < 1 || A > MAX_A || C < 1 || C > 1024) return cudaErrorInvalidValue;
   if (ncells == 0) return cudaSuccess;
+  const Cells a{static_cast<const float*>(pts), static_cast<const int*>(starts),
+                static_cast<const int*>(counts),
+                static_cast<const float*>(mmat), static_cast<float*>(tot),
+                smax, ncells, C, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = ((C < 4 ? 4 : C) + 31) / 32 * 32;
-  const float* p = static_cast<const float*>(pts);
-  const int* s = static_cast<const int*>(starts);
-  const int* c = static_cast<const int*>(counts);
-  const float* m = static_cast<const float*>(mmat);
-  float* t = static_cast<float*>(tot);
-  if (out_bf16)
-    scan_gather<true, SERVE><<<ncells, threads, 0, st>>>(p, A, s, c, m, C, cap,
-                                                         t, smax, nullptr);
-  else
-    scan_gather<false, SERVE><<<ncells, threads, 0, st>>>(
-        p, A, s, c, m, C, cap, t, smax, nullptr);
-  return cudaGetLastError();
+  if (out_bf16) return launch_cells<true>(a, A, st);
+  return launch_cells<false>(a, A, st);
 }
 
 // K4 (packed = 0) and K5 (packed = 1: bf16 only, 0 <= cap <= 4096); argpos

@@ -19,6 +19,7 @@ import torch
 from gndnet_tpu_torch import _ext
 
 _MAX_C = 2048      # columns the kernel takes (csrc/suffix_segment.cu MAX_C)
+_STAGE = 16384     # floats a block stages (suffix_segment.cu STAGE_FLOATS)
 
 
 def _check(x: torch.Tensor, cell: torch.Tensor, op: str, chunk: int) -> None:
@@ -43,7 +44,7 @@ def _check(x: torch.Tensor, cell: torch.Tensor, op: str, chunk: int) -> None:
 
 def tile_rows(width: int) -> int:
     """Rows per block of the kernel: 256 at 64 columns and more, up to
-    1024 for narrow streams (fewer tiles for the serial carry pass)."""
+    1024 for narrow streams (fewer tiles to carry runs across)."""
     return max(256, min(1024, 16384 // width))
 
 
@@ -132,8 +133,9 @@ def suffix_segment_reduce(x: torch.Tensor, cell: torch.Tensor,
                           op: str = "max",
                           chunk: int = 1024) -> torch.Tensor:
     """Wrapper of K7: (N, C) x over the runs of a non-decreasing (N,) int32
-    `cell` -> (N, C) in x's type.  `chunk` only keeps the JAX entry's
-    N % chunk rule; the kernel is not tied to it."""
+    `cell` -> (N, C) in x's type, in one kernel launch (and one memset of
+    its flags).  `chunk` only keeps the JAX entry's N % chunk rule; the
+    kernel is not tied to it."""
     _check(x, cell, op, chunk)
     if x.device.type == "cpu":
         return suffix_segment_reduce_plain(x, cell, op, chunk)
@@ -144,12 +146,16 @@ def suffix_segment_reduce(x: torch.Tensor, cell: torch.Tensor,
     if n == 0 or width == 0:
         return out
     tile = tile_rows(width)
-    scratch = torch.empty((2, -(-n // tile), width), dtype=torch.float32,
-                          device=x.device)
+    cols = min(width, _STAGE // tile)        # columns a block stages
+    nt = -(-n // tile)
+    # heads and inclusive values (2, nt, C) f32, then the ticket and one
+    # flag per (column chunk, tile), which the entry zeroes
+    scratch = torch.empty(2 * nt * width + 1 + -(-width // cols) * nt,
+                          dtype=torch.int32, device=x.device)
     fn = _ext.function("suffix_segment_reduce")
     _ext.check(fn(x.data_ptr(), cell.data_ptr(), out.data_ptr(),
-                  scratch[0].data_ptr(), scratch[1].data_ptr(), n, width,
-                  tile, int(op == "max"), int(x.dtype == torch.bfloat16),
+                  scratch.data_ptr(), n, width, tile, cols,
+                  int(op == "max"), int(x.dtype == torch.bfloat16),
                   _ext.stream_ptr(out)), "suffix_segment_reduce")
     suffix_segment_reduce.launches += 1
     return out

@@ -10,9 +10,11 @@ the affine path, or one kernel alone, at kitti_sem's serving shapes
 from a seed) and, for the fine_grid cases, at fine_grid's (250x250 cells,
 where the packed key overflows and K10 sorts).  Scans come from
 `synthetic.py`.  Every case prints one JSON line: its mean milliseconds
-per call by CUDA events over `--reps` warm calls, and the card's name and
-power limit as nvidia-smi gives them.  `--only S` runs the cases whose
-name contains S.
+per call by CUDA events over `--reps` warm calls (the host's launch time
+included where the card waits for it), the device milliseconds and device
+operations per call by torch.profiler over as many calls, and the card's
+name and power limit as nvidia-smi gives them.  `--only S` runs the cases
+whose name contains S.
 
 The JAX script sweeps the chunk size of each TPU kernel (512-2048 lanes);
 the card's kernels tile by their own rules, so the sweep collapses to one
@@ -33,7 +35,7 @@ from gndnet_tpu_torch.infer import GroundInferenceEngine
 from gndnet_tpu_torch.ops import affine, affine_aux, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import segment_cloud
-from gndnet_tpu_torch.profile_serve import card
+from gndnet_tpu_torch.profile_serve import card, kernel_times
 from gndnet_tpu_torch.synthetic import synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -230,7 +232,12 @@ def run(only=(), reps: int = 20, setup: Setup | None = None) -> list:
             continue
         with torch.no_grad():
             ms = time_ms(fn, reps=reps, warm=2)
-        line = {"case": name, "ms": ms, "reps": reps, "card": smi}
+            device = kernel_times(fn, reps)
+        line = {"case": name, "ms": ms,
+                "device_ms": device.get("device_ms_per_call", "not measured"),
+                "device_ops": device.get("device_ops_per_call",
+                                         "not measured"),
+                "reps": reps, "card": smi}
         if name == "infer_many_K16":
             line["ms_per_scan"] = ms / len(setup.scans)
         lines.append(line)

@@ -196,11 +196,14 @@ def _k7_stream(kind, n, rng):
 
 @pytest.mark.parametrize("kind", ["runs", "negated", "one_cell", "drop"])
 @pytest.mark.parametrize("n,width", [(1, 4), (1000, 4), (5000, 64),
-                                     (70_001, 4), (20_480, 64)])
+                                     (70_001, 4), (20_480, 64), (4000, 6),
+                                     (30_000, 200)])
 def test_suffix_segment_kernel(dev, kind, n, width):
     """K7 against its plain version, which sums in the kernel's order: max
     (f32 and bf16) and sum equal to the bit, and the same bits on a second
-    run; N is not always a multiple of the kernel's tile."""
+    run; N is not always a multiple of the kernel's tile, rows of 6
+    columns are not a 16-byte multiple, and 200 columns take four column
+    chunks."""
     rng = np.random.default_rng(n + width)
     cell = torch.from_numpy(_k7_stream(kind, n, rng).astype(np.int32)).to(
         dev)
@@ -219,6 +222,105 @@ def test_suffix_segment_kernel(dev, kind, n, width):
     assert segment.suffix_segment_reduce.launches == before + 4
     assert torch.equal(got, again)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["drop", "one_cell", "negated_drop", "runs"])
+@pytest.mark.parametrize("width", [64, 4])
+def test_suffix_segment_kernel_serving_shapes(dev, kind, width):
+    """K7 at the sorted frontend's shapes, (102 400, 64) max and (102 400,
+    4) sums, with a chain of whole-run tiles longer than the look-back's
+    32-tile window (the drop run over 60% of the rows, one cell, the
+    flipped negated stream whose drop run leads): equal to the plain
+    version to the bit, f32 and bf16, and 20 calls give the same bits."""
+    n = 102_400
+    rng = np.random.default_rng(width)
+    cells = np.sort(rng.integers(0, 10_000, n))
+    if kind != "runs":
+        cells[int(0.4 * n):] = 10_000
+    if kind == "one_cell":
+        cells[:] = 10_000
+    if kind == "negated_drop":
+        cells = np.flip(-cells)
+    cell = torch.from_numpy(cells.astype(np.int32).copy()).to(dev)
+    x = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(
+        dev)
+    op, types = (("max", (x, x.bfloat16())) if width == 64
+                 else ("sum", (x,)))
+    for xx in types:
+        want = segment.suffix_segment_reduce_plain(xx, cell, op, 1)
+        before = segment.suffix_segment_reduce.launches
+        for _ in range(20):
+            assert torch.equal(segment.suffix_segment_reduce(xx, cell, op, 1),
+                               want)
+        assert segment.suffix_segment_reduce.launches == before + 20
+
+
+def _serving_cells(ncells, points, rng):
+    """Run starts and counts of `points` rows over `ncells` cells as a
+    served kitti_sem scan gives them: about a quarter of the cells
+    occupied, a few far over the cap of 100."""
+    occupied = rng.choice(ncells, ncells // 4, replace=False)
+    counts = np.bincount(rng.choice(occupied, points), minlength=ncells)
+    counts[occupied[:ncells // 500]] += 550
+    starts = np.cumsum(counts) - counts
+    return starts.astype(np.int32), counts.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["kitti_sem", "infer_many_K16", "empty",
+                                  "one_cell_cap", "one_cell_nocap"])
+def test_scan_kernel_serving_shapes(dev, case, dtype):
+    """K2 (one warp a cell) at kitti_sem's serving shape (10 000 cells,
+    ~100 000 points, cap 100), at `infer_many`'s K=16 (160 000 cells), with
+    every cell empty, and with one cell of 5 000 points under cap 100 and
+    without a cap: tot, counts and smax equal to the plain version's."""
+    rng = np.random.default_rng(7)
+    ncells, points, cap = 10_000, 100_000, 100
+    if case == "infer_many_K16":
+        ncells, points = 160_000, 1_600_000
+    starts, counts = _serving_cells(ncells, points, rng)
+    if case == "empty":
+        counts[:] = 0
+    if case.startswith("one_cell"):
+        counts[:] = 0
+        counts[4321] = 5000
+        starts[:] = 0
+        cap = 100 if case == "one_cell_cap" else None
+    pts = rng.normal(size=(max(int(counts.sum()), 1), 4)).astype(np.float32)
+    pts[:, :3] *= 30
+    mmat = rng.normal(size=(4, 64)).astype(np.float32)
+    pts, starts, counts, mmat = (torch.from_numpy(a).to(dev)
+                                 for a in (pts, starts, counts, mmat))
+    before = affine.affine_scan_gather.launches
+    tot, smax = affine.affine_scan_gather(pts, starts, counts, mmat, cap,
+                                          dtype)
+    assert affine.affine_scan_gather.launches == before + 1
+    tot_p, smax_p = affine.affine_scan_gather_plain(pts, starts, counts,
+                                                    mmat, cap, dtype)
+    assert smax.dtype == dtype
+    assert torch.equal(tot, tot_p)
+    assert torch.equal(smax.float(), smax_p.float())
+
+
+@pytest.mark.parametrize("width", [24, 100, 129])
+def test_scan_kernel_channel_groups(dev, width):
+    """K2 with fewer channels than a warp's 64, with two 64-channel groups,
+    and with an odd count (no paired stores): equal to the plain version,
+    bf16 and f32."""
+    rng = np.random.default_rng(width)
+    starts, counts = _serving_cells(2000, 20_000, rng)
+    pts = torch.from_numpy(rng.normal(size=(int(counts.sum()), 5)).astype(
+        np.float32) * 10).to(dev)
+    mmat = torch.from_numpy(rng.normal(size=(5, width)).astype(
+        np.float32)).to(dev)
+    starts, counts = (torch.from_numpy(a).to(dev) for a in (starts, counts))
+    for dtype in (torch.bfloat16, torch.float32):
+        tot, smax = affine.affine_scan_gather(pts, starts, counts, mmat, 100,
+                                              dtype)
+        tot_p, smax_p = affine.affine_scan_gather_plain(pts, starts, counts,
+                                                        mmat, 100, dtype)
+        assert torch.equal(tot, tot_p)
+        assert torch.equal(smax.float(), smax_p.float())
 
 
 def test_sorted_engine_kernel_path_matches_plain_path(dev):

@@ -73,6 +73,53 @@ def test_sum_f32_counts_exact(kind):
                                atol=SUM_ATOL * np.abs(want).max())
 
 
+TILED_N = 8192     # 8 kernel tiles of 1024 rows at C=4, 32 of 256 at C=64
+
+
+def _tiled_cells(kind, rng):
+    """Id streams long enough that K7's tile carry runs (the JAX kernel's
+    own chunk is 1024), with runs over many tiles."""
+    cells = np.sort(rng.integers(0, 300, TILED_N))
+    if kind == "drop_most_tiles":          # the drop run from mid-tile on
+        cells[1500:] = 300
+    elif kind == "single_cell":
+        cells[:] = 7
+    elif kind == "negated_flipped":        # the prefix-sum stream of it
+        cells[1500:] = 300
+        cells = np.flip(-cells)
+    elif kind == "runs_across_tiles":
+        cells[700:3100] = cells[700]
+        cells = np.sort(cells)
+    return np.ascontiguousarray(cells).astype(np.int32)
+
+
+@pytest.mark.parametrize("op,width", [("sum", 4), ("max", 64)])
+@pytest.mark.parametrize("kind", ["drop_most_tiles", "single_cell",
+                                  "negated_flipped", "runs_across_tiles"])
+def test_tile_carry_matches_pallas(kind, op, width):
+    """K7's plain version, in the kernel's order, where its tile carries
+    chain over many tiles, against Pallas interpret with the JAX default
+    chunk: the frontends' xyzk sums (counts exact, sums within SUM_ATOL of
+    scale) and the 64-channel activation max (exact)."""
+    rng = np.random.default_rng(6)
+    cells = _tiled_cells(kind, rng)
+    x = rng.normal(size=(TILED_N, width)).astype(np.float32) * 20
+    if op == "sum":
+        x[:, 3] = rng.random(TILED_N) < 0.8
+        x[:, :3] *= x[:, 3:]
+    want = np.asarray(jseg.suffix_segment_reduce(
+        jnp.asarray(x), jnp.asarray(cells), op=op, chunk=1024,
+        interpret=True))
+    got = segment.suffix_segment_reduce_plain(
+        torch.from_numpy(x), torch.from_numpy(cells), op, 1024).numpy()
+    if op == "max":
+        np.testing.assert_array_equal(got, want)
+        return
+    np.testing.assert_array_equal(got[:, 3], want[:, 3])
+    np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=0,
+                               atol=SUM_ATOL * np.abs(want).max())
+
+
 def test_max_bf16_is_exact():
     rng = np.random.default_rng(3)
     cells = _cells("runs_across_chunks", rng)
