@@ -6,20 +6,26 @@
 Phases, each printing one JSON line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile every kernel of csrc/ with nvcc;
-  3. kernels: each hand-written kernel (K1 sort, K3 cell counts, K2 capped
-     scan at the serving shapes; K4 and K5 argmax scans and K6 d(mmat) at
-     the kitti_sem B=2 training shapes; K7 at the sorted frontend's; K10
-     pair sort on the fine_grid affine path's (cell, iota) pairs; K8 and
-     K9 at profile_affine's shapes) against its plain PyTorch version on
-     the card, with edge cases, its time, the plain version's time and a
-     library call's time (CUDA events over warm repetitions).  K1 and K10
+  3. kernels: each hand-written kernel (K1 sort, K3 cell counts and run
+     ends, K2 capped scan at the serving shapes; K4 and K5 argmax scans
+     and K6 d(mmat) at the kitti_sem B=2 training shapes; K7 at the
+     sorted frontend's; K10 pair sort on the fine_grid affine path's
+     (cell, iota) pairs; K8 and K9 at profile_affine's shapes) against
+     its plain PyTorch version on the card, with edge cases, its time,
+     the plain version's time and a library call's time (CUDA events over
+     warm repetitions).  K1 and K10
      are the cluster radix sort up to its capacity, which the card must
      confirm, and the bitonic kernels above it; both paths are checked,
      and their rows add the bitonic kernel's time at the main path's shape
      (`earlier_ms`), and the kernels one call of the wrapper and of the
      library call enqueue, with their device time (torch.profiler).  The
-     K2 and K7 rows add the device operations one call enqueues and their
-     device time: one for K2, at most two (a memset and the kernel) for K7;
+     K2-K5 and K7 rows add the device operations one call enqueues and
+     their device time: one for K2-K5, at most two (a memset and the
+     kernel) for K7.  K3 is checked on every route (each cluster size, the
+     global route above its capacity, which the card must confirm), with
+     its ends, on a B=16 burst and on fine_grid's ids, and reports the
+     time of clusters of 8 and 16 CTAs (`cluster_sizes`) and
+     `torch.bincount`'s device time;
   4. serve: kitti_sem single-scan serving (bf16 convs, 'default' precision,
      random weights from a seed) of synthetic 100 000-point scans through
      GroundInferenceEngine on the card; K1-K3 must launch once per scan and
@@ -212,28 +218,114 @@ def check_sort(key: torch.Tensor, rng) -> dict:
         "capacity": cap, "shape": [n], **bound(2 * 4 * n, 0)}
 
 
-def check_hist(local_s: torch.Tensor, ny: int, nx: int, rng) -> dict:
+def burst_ids(engine, scans) -> torch.Tensor:
+    """The (K, N) sorted local cell ids a batched call hands K3 for a burst
+    of K scans (`cell_stream` at B=K; drop id ny*nx)."""
+    padded = torch.from_numpy(np.stack([engine._prepare(s)[0]
+                                        for s in scans]))
+    pts = engine.device_points(padded)
+    geom = engine.model.geom
+    ctx = pz.bin_points_batch(pts, geom)
+    b, n = pts.shape[:2]
+    c3 = geom.num_cells_3d
+    item = torch.arange(b, dtype=torch.int32, device=pts.device)
+    local = torch.where(ctx.valid, ctx.cell - item.repeat_interleave(n) * c3,
+                        c3).reshape(b, n)
+    return torch.sort(local, dim=-1).values.contiguous()
+
+
+def hist_case(ids, ny, nx, cluster, what: str) -> None:
+    """K3 on one input, with ends and without: counts and ends equal to
+    the plain versions', one launch a call."""
+    before = K3.launches
+    ends, counts = affine.cell_histogram(ids, ny, nx, True, cluster)
+    _, alone = affine.cell_histogram(ids, ny, nx, False, cluster)
+    torch.cuda.synchronize()
+    require(K3.launches == before + 2, f"K3 {what}: "
+                                       f"{K3.launches - before} launches")
+    want_ends, want_counts = affine.histogram_ends_plain(ids, ny, nx)
+    for name, got, want in (("counts", counts, want_counts),
+                            ("counts alone", alone, want_counts),
+                            ("ends", ends, want_ends)):
+        require(torch.equal(got, want), f"K3 {what}: {name} differ in "
+                f"{int((got != want).sum())} entries")
+
+
+def check_hist(local_s, ny, nx, rng, burst, fine) -> dict:
+    """K3 (one cluster launch a call, its counters in distributed shared
+    memory, up to HIST_CLUSTER_MAX_CELLS cells; the global route above,
+    which the card must confirm) against the plain counts and ends: the
+    main path's sorted ids, unsorted, all drop ids, an `infer_many` burst
+    of 16 scans, fine_grid's 250x250 on its own ids, a grid just above the
+    cluster's capacity, every cluster size and the global route on the
+    main path's ids, and twenty repeated calls alike.  Times the main
+    path's `histogram_ends`, and clusters of 8 and 16 CTAs (the size
+    rule's measurement)."""
+    cap = _ext.function("cell_histogram_capacity")()
+    require(cap == affine.HIST_CLUSTER_MAX_CELLS,
+            f"K3 capacity on this card {cap}, ops/affine.py "
+            f"{affine.HIST_CLUSTER_MAX_CELLS}")
+    fine_ids, fine_ny, fine_nx = fine
+    big_ny, big_nx = 2, affine.HIST_CLUSTER_MAX_CELLS // 2 + 1
+    require(affine.histogram_cluster(big_ny * big_nx) == 0,
+            "the grid above capacity takes the global route")
+    big = torch.sort(torch.from_numpy(rng.integers(
+        0, big_ny * big_nx + 1, (2, local_s.shape[1])).astype(
+            np.int32)).cuda(), dim=-1).values
     perm = torch.from_numpy(rng.permutation(local_s.shape[1])).to(
         local_s.device)
-    cases = {"kitti_sorted": local_s,
-             "kitti_unsorted": local_s[:, perm].contiguous(),
-             "all_drop": torch.full_like(local_s, ny * nx)}
-    worst = 0
-    for name, ids in cases.items():
-        got = affine.histogram_counts(ids, ny, nx)
-        want = affine.histogram_counts_plain(ids, ny, nx)
-        err = int((got - want).abs().max())
-        require(err == 0, f"K3 counts {name}: max |err| {err}")
-        worst = max(worst, err)
+    cases = [("kitti_sorted", local_s, ny, nx, None),
+             ("kitti_unsorted", local_s[:, perm].contiguous(), ny, nx, None),
+             ("all_drop", torch.full_like(local_s, ny * nx), ny, nx, None),
+             ("kitti_burst_B16", burst, ny, nx, None),
+             ("fine_grid_250x250", fine_ids, fine_ny, fine_nx, None),
+             ("above_capacity", big, big_ny, big_nx, None)]
+    cases += [(f"kitti_cluster_{g}", local_s, ny, nx, g)
+              for g in (0, 1, 2, 4, 8, 16)]
+    for name, ids, gy, gx, g in cases:
+        hist_case(ids, gy, gx, g, name)
+    first = affine.histogram_ends(local_s, ny, nx)
+    for _ in range(20):
+        again = affine.histogram_ends(local_s, ny, nx)
+        require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                "K3: repeated calls differ")
     ids = local_s
+    launches, device_ms = device_profile(
+        lambda: affine.histogram_ends(ids, ny, nx))
+    require(round(launches) == 1, f"K3 ends enqueues {launches} device "
+                                  "operations a call, not 1")
+    alone, alone_ms = device_profile(
+        lambda: affine.histogram_counts(ids, ny, nx))
+    require(round(alone) == 1, f"K3 counts enqueue {alone} device "
+                               "operations a call, not 1")
+
+    def library():
+        return torch.bincount(ids[0], minlength=ny * nx + 1)
+
+    lib_launches, lib_device_ms = device_profile(library)
+    sizes = {}
+    for what, x, gy, gx in (("kitti_B1", local_s, ny, nx),
+                            ("kitti_B16", burst, ny, nx),
+                            ("fine_grid_B1", fine_ids, fine_ny, fine_nx)):
+        for g in (8, 16):
+            def fn():
+                return affine.cell_histogram(x, gy, gx, True, g)
+            sizes[f"{what}_cluster_{g}"] = {
+                "ms": time_ms(fn), "device_ms": device_profile(fn)[1]}
     return {
-        "name": "cell_histogram_i32", "max_abs_err": worst,
-        "ms": time_ms(lambda: affine.histogram_counts(ids, ny, nx)),
-        "plain_ms": time_ms(lambda: affine.histogram_counts_plain(
+        "name": "cell_histogram_i32", "max_abs_err": 0,
+        "ms": time_ms(lambda: affine.histogram_ends(ids, ny, nx)),
+        "plain_ms": time_ms(lambda: affine.histogram_ends_plain(
             ids, ny, nx)),
-        "library_ms": time_ms(lambda: torch.bincount(
-            ids[0], minlength=ny * nx + 1)),
-        **bound(4 * ids.numel() + 4 * ny * nx, ids.numel())}
+        "library_ms": time_ms(library), "library": "torch.bincount",
+        "device_launches_per_call": launches, "device_ms": device_ms,
+        "library_device_launches_per_call": lib_launches,
+        "library_device_ms": lib_device_ms, "capacity": cap,
+        "counts_ms": time_ms(lambda: affine.histogram_counts(ids, ny, nx)),
+        "counts_device_ms": alone_ms,
+        "cluster": affine.histogram_cluster(ny * nx),
+        "cluster_sizes": sizes,
+        **bound(4 * ids.numel() + 2 * 4 * ny * nx, ids.numel())}
 
 
 def scan_case(pts, counts, mmat, cap, dtype, what: str) -> float:
@@ -328,9 +420,12 @@ def argmax_case(pts, starts, counts, mmat, cap, dtype, what: str):
     return got
 
 
-def check_argmax(spts, starts, counts, mmat, cap, packed: bool) -> dict:
+def check_argmax(spts, starts, counts, mmat, cap, packed: bool,
+                 rng) -> dict:
     """K5 (packed) at bf16 / cap, or K4 at f32 / cap (the f32 training
-    path), plus bf16 without a cap (K4), a single point and no points."""
+    path), plus bf16 without a cap (K4), a single point, no points, and one
+    cell of 5 000 points at cap 100 and at cap 4096 (the packed key's
+    12-bit rank field)."""
     dtype = torch.bfloat16 if packed else torch.float32
     cases = [(spts, counts, cap, dtype, "kitti B=2")]
     if not packed:
@@ -340,9 +435,15 @@ def check_argmax(spts, starts, counts, mmat, cap, packed: bool) -> dict:
     s0 = torch.zeros_like(starts)
     cases += [(spts[:1].contiguous(), one, cap, dtype, "single point"),
               (spts, torch.zeros_like(counts), cap, dtype, "all invalid")]
+    long_run = torch.zeros_like(counts)
+    long_run[counts.numel() // 2] = 5000
+    long_pts = torch.from_numpy((rng.normal(size=(5000, spts.shape[1]))
+                                 * 10).astype(np.float32)).cuda()
+    cases += [(long_pts, long_run, c, dtype, f"5000-point cell, cap {c}")
+              for c in (100, affine.PACKED_MAX_CAP)]
     for pts, cnt, c, dt, what in cases:
-        argmax_case(pts, s0 if pts.shape[0] == 1 else starts, cnt, mmat, c,
-                    dt, what)
+        argmax_case(pts, starts if pts is spts else s0, cnt, mmat, c, dt,
+                    what)
     require(int(counts.max()) > cap, "the batch has a cell over the cap")
     fn = (affine.affine_scan_argmax_packed if packed
           else affine.affine_scan_argmax_pair)
@@ -354,6 +455,9 @@ def check_argmax(spts, starts, counts, mmat, cap, packed: bool) -> dict:
         return affine.affine_scan_argmax_plain(spts, starts, counts, mmat,
                                                cap, dtype, packed)
 
+    launches, device_ms = device_profile(kern)
+    require(round(launches) == 1, f"{fn.__name__} enqueues {launches} "
+                                  "device operations a call, not 1")
     kept = int(counts.clamp(max=cap).sum())
     a, width = mmat.shape
     ncells = counts.numel()
@@ -365,6 +469,7 @@ def check_argmax(spts, starts, counts, mmat, cap, packed: bool) -> dict:
                      else "affine_scan_argmax_pair"),
             "max_abs_err": 0.0, "ms": time_ms(kern),
             "plain_ms": time_ms(plain, reps=3, warm=1), "library_ms": None,
+            "device_launches_per_call": launches, "device_ms": device_ms,
             **bound(bytes_moved, ops)}
 
 
@@ -426,7 +531,7 @@ def set_bn_stats(sd: dict, rng) -> None:
             t.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, t.shape)))
 
 
-COUNTERS = (sort.sort_i32, affine.histogram_counts,
+COUNTERS = (sort.sort_i32, affine.cell_histogram,
             affine.affine_scan_gather, affine.affine_scan_argmax_pair,
             affine.affine_scan_argmax_packed, affine.affine_bwd_dmmat,
             segment.suffix_segment_reduce, affine_aux.affine_segment_scan,
@@ -1159,7 +1264,7 @@ REPLACES = {
 }
 # kernel row -> (wrapper, the path whose run gives its `launches`)
 WRAPPER = {"cluster_radix_sort_i32": ("sort_i32", "serve"),
-           "cell_histogram_i32": ("histogram_counts", "serve"),
+           "cell_histogram_i32": ("cell_histogram", "serve"),
            "affine_scan_gather": ("affine_scan_gather", "serve"),
            "affine_scan_argmax_pair": ("affine_scan_argmax_pair",
                                        "train_f32"),
@@ -1209,24 +1314,29 @@ def run(cfg, n_points: int, device) -> list:
     key, local_s, spts, mmat = main_path_inputs(probe,
                                                 torch.from_numpy(padded))
     cap = cfg.max_points_voxel
-    rows = [check_sort(key, rng),
-            check_hist(local_s, cfg.ny, cfg.nx, rng),
-            check_scan(spts, local_s, cfg.ny, cfg.nx, mmat, cap)]
-    batch, _ = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH, n_points)
-    tpts, tstarts, tcounts, tmmat = train_inputs(cfg, sd, batch)
-    rows += [check_argmax(tpts, tstarts, tcounts, tmmat, cap, packed=False),
-             check_argmax(tpts, tstarts, tcounts, tmmat, cap, packed=True),
-             check_dmmat(tpts, tstarts, tcounts, tmmat, cap, rng)]
-    sorted_cfg = cfg.replace(fused_impl="sorted")
-    probe = GroundInferenceEngine(sorted_cfg, sd, device=device)
-    rows.append(check_segment(*sorted_path_inputs(
-        probe, torch.from_numpy(probe._prepare(scans[0])[0]))))
+    scans16 = scans + [synthetic_scan(cfg, rng, n_points) for _ in range(10)]
     fine_aff = serving_config(SHIPPED["fine_grid"]())
     fine_aff_sd = init_state_dict(fine_aff, seed=SEED)
     set_bn_stats(fine_aff_sd, rng)
     fine_aff_scans = [synthetic_scan(fine_aff, rng, n_points)
                       for _ in range(4)]
-    probe = GroundInferenceEngine(fine_aff, fine_aff_sd, device=device)
+    fine_probe = GroundInferenceEngine(fine_aff, fine_aff_sd, device=device)
+    rows = [check_sort(key, rng),
+            check_hist(local_s, cfg.ny, cfg.nx, rng,
+                       burst_ids(probe, scans16),
+                       (burst_ids(fine_probe, fine_aff_scans[:1]),
+                        fine_aff.ny, fine_aff.nx)),
+            check_scan(spts, local_s, cfg.ny, cfg.nx, mmat, cap)]
+    batch, _ = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH, n_points)
+    tpts, tstarts, tcounts, tmmat = train_inputs(cfg, sd, batch)
+    rows += [check_argmax(tpts, tstarts, tcounts, tmmat, cap, False, rng),
+             check_argmax(tpts, tstarts, tcounts, tmmat, cap, True, rng),
+             check_dmmat(tpts, tstarts, tcounts, tmmat, cap, rng)]
+    sorted_cfg = cfg.replace(fused_impl="sorted")
+    probe = GroundInferenceEngine(sorted_cfg, sd, device=device)
+    rows.append(check_segment(*sorted_path_inputs(
+        probe, torch.from_numpy(probe._prepare(scans[0])[0]))))
+    probe = fine_probe
     rows.append(check_sort2(*fine_path_pairs(probe, torch.from_numpy(
         probe._prepare(fine_aff_scans[0])[0])), rng))
     setup = profile_affine.Setup(cfg, fine_aff, n_points)
@@ -1281,7 +1391,6 @@ def run(cfg, n_points: int, device) -> list:
     trained = train_fine_grid(fine_aff, fine_aff_sd, rng, device)
     paths["train_fine_grid_affine"] = trained["launches"]
     emit(trained["result"])
-    scans16 = scans + [synthetic_scan(cfg, rng, n_points) for _ in range(10)]
     many = serve_many([("kitti_sem_K4", cfg, sd, scans[:4]),
                        ("kitti_sem_K16", cfg, sd, scans16),
                        ("fine_grid_K2", fine_aff, fine_aff_sd,
@@ -1309,7 +1418,9 @@ def run(cfg, n_points: int, device) -> list:
             **{k: row[k] for k in ("earlier_ms", "earlier",
                                    "device_launches_per_call", "device_ms",
                                    "library_device_launches_per_call",
-                                   "library_device_ms", "capacity")
+                                   "library_device_ms", "capacity",
+                                   "counts_ms", "counts_device_ms",
+                                   "cluster", "cluster_sizes")
                if k in row}})
     return kernels
 

@@ -39,7 +39,9 @@ SIGNATURES = {
     "cluster_radix_sort2_i32": ("cluster_radix_sort", [_P, _P, _P, _P, _I,
                                                        _P]),
     "cluster_radix_sort_capacity": ("cluster_radix_sort", [_I]),
-    "cell_histogram_i32": ("cell_histogram", [_P, _P, _I, _I, _I, _P]),
+    "cell_histogram_i32": ("cell_histogram", [_P, _P, _P, _I, _I, _I, _I,
+                                              _P]),
+    "cell_histogram_capacity": ("cell_histogram", []),
     "affine_scan_gather": ("affine_scan", [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _I, _I, _I, _P]),
     "affine_scan_argmax": ("affine_scan", [_P, _P, _P, _P, _P, _P, _P, _I,

@@ -49,21 +49,25 @@
 // exact max and the in-order xyz sums (lanes 0-2) are the arithmetic
 // above, so the plain version is equal to the bit.
 //
-// K4 and K5 (`scan_gather`, one block of C threads per cell, rows staged
-// through shared memory 128 at a time) replace
-// `affine_scan_t(want_argmax=True)` and
+// K4 and K5 replace `affine_scan_t(want_argmax=True)` and
 // `affine_scan_t(want_argmax=True, packed_argmax=True)` as the forward of
 // `_make_scan_gather`'s VJP reads them.  Both return K2's tot and smax and,
 // per (cell, channel), `argpos`: the global stream row of the FIRST kept row
-// that attains the max (-1 for an empty cell).  They are the two modes of
-// one kernel:
-//   K4 (PAIR, f32 or no cap): a row replaces the best only when its value
-//     is strictly greater, so ties keep the earlier row and -0.0 ties +0.0
-//     (the TPU kernel's `am_r >= am` combine, earlier window winning);
-//   K5 (PACKED, bf16 with cap <= 4096): the max runs over one int key
-//     mono16(value) << 12 | (4095 - rank), mono16 being the total order of
-//     bf16 bit patterns, so -0.0 < +0.0 and equal values keep the lower
-//     rank; the key decodes to the exact bf16 value and start + rank.
+// that attains the max (-1 for an empty cell).
+//   K4 (`scan_gather`, f32 or no cap; one block of C threads per cell, rows
+//     staged through shared memory 128 at a time): a row replaces the best
+//     only when its value is strictly greater, so ties keep the earlier
+//     row and -0.0 ties +0.0 (the TPU kernel's `am_r >= am` combine,
+//     earlier window winning);
+//   K5 (`scan_cells<bf16, A, ARGMAX>`, bf16 with cap <= 4096): K2's body,
+//     a warp per cell, where each lane keeps one int key per channel in
+//     place of the max, max(key, mono16(value) << 12 | (4095 - rank)),
+//     mono16 being the total order of bf16 bit patterns, so -0.0 < +0.0
+//     and equal values keep the lower rank.  On exit the key decodes to
+//     the exact bf16 value and to start + rank, stored as a bf16 pair and
+//     an int2 (a 256-byte argpos row a warp).  A block per cell took a
+//     block of 64 threads for each of B=2's 20 000 cells, most of them
+//     empty, and two barriers per pass of up to 128 rows.
 // Positions are int32: the TPU's integer-valued-f32 encoding existed only
 // for XLA:TPU's denormal flush.  They add one (ncells, C) int32 write (5 MB
 // at B=2) to K2's bytes; the bound stays latency, as for K2.
@@ -77,7 +81,6 @@ namespace {
 constexpr int ROWS = 128;   // rows staged per pass
 constexpr int MAX_A = 8;
 constexpr float BIG_NEG = -3.0e38f;
-enum Mode { PAIR = 1, PACKED = 2 };
 
 template <bool BF16>
 __device__ __forceinline__ float round_out(float v) {
@@ -94,10 +97,12 @@ __device__ __forceinline__ void store_out(float v, void* smax, size_t i) {
 }
 
 // The total order of bf16 bit patterns as an int in [0, 65535]: negatives
-// flipped, positives above them (pallas_affine.py `mono`).
+// flipped, positives above them (pallas_affine.py `mono`), of a float that
+// holds a bf16 value exactly, so its high half is the pattern: integer
+// work only, where a second conversion to bf16 made K5 slower.
 __device__ __forceinline__ int mono16(float v) {
-  const int bits = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  return bits >= 32768 ? 65535 - bits : bits + 32768;
+  const int s = __float_as_int(v) >> 16;   // the pattern, sign-extended
+  return s >= 0 ? s + 32768 : ~s;
 }
 
 __device__ __forceinline__ float unmono16(int mono) {
@@ -106,7 +111,7 @@ __device__ __forceinline__ float unmono16(int mono) {
       __ushort_as_bfloat16(static_cast<unsigned short>(bits)));
 }
 
-template <bool BF16, int MODE>
+template <bool BF16>
 __global__ void scan_gather(const float* __restrict__ pts, int A,
                             const int* __restrict__ starts,
                             const int* __restrict__ counts,
@@ -126,8 +131,7 @@ __global__ void scan_gather(const float* __restrict__ pts, int A,
     m[k] = (k < A && ch < C) ? round_out<BF16>(mmat[k * C + ch]) : 0.0f;
 
   float best = -INFINITY;
-  int best_row = -1;   // PAIR: global row of the first best
-  int best_key = -1;   // PACKED: every kept row's key is >= 0
+  int best_row = -1;   // global row of the first best
   float sum = 0.0f;
   for (int r0 = 0; r0 < n; r0 += ROWS) {
     const int nr = (n - r0) < ROWS ? (n - r0) : ROWS;
@@ -142,20 +146,12 @@ __global__ void scan_gather(const float* __restrict__ pts, int A,
       for (int k = 0; k < MAX_A; ++k)
         if (k < A) acc = __fmaf_rn(m[k], round_out<BF16>(p[k]), acc);
       const float v = round_out<BF16>(acc);
-      if constexpr (MODE == PAIR) {
-        if (r0 + r == 0 || v > best) {
-          best = v;
-          best_row = static_cast<int>(start) + r0 + r;
-        }
-      } else {
-        best_key = max(best_key, (mono16(v) << 12) | (4095 - (r0 + r)));
+      if (r0 + r == 0 || v > best) {
+        best = v;
+        best_row = static_cast<int>(start) + r0 + r;
       }
       if (ch < 3) sum = __fadd_rn(sum, p[ch]);
     }
-  }
-  if constexpr (MODE == PACKED) {
-    best = unmono16(best_key >> 12);
-    best_row = static_cast<int>(start) + 4095 - (best_key & 4095);
   }
   if (n == 0) {
     best = BIG_NEG;
@@ -189,10 +185,11 @@ struct Cells {
   const float* mmat;
   float* tot;
   void* smax;
+  int* argpos;   // K5 only
   int ncells, C, cap;
 };
 
-template <bool BF16, int A>
+template <bool BF16, int A, bool ARGMAX>
 __global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
   const float* __restrict__ pts = a.pts;
   const int C = a.C, cap = a.cap, ncells = a.ncells;
@@ -220,9 +217,10 @@ __global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
       if (cell >= ncells) break;
       const int count = __shfl_sync(FULL, my_count, j);
       const int n = (cap >= 0 && count > cap) ? cap : count;
-      const float* src =
-          pts + static_cast<size_t>(__shfl_sync(FULL, my_start, j)) * A;
+      const int start = __shfl_sync(FULL, my_start, j);
+      const float* src = pts + static_cast<size_t>(start) * A;
       float best0 = -INFINITY, best1 = -INFINITY, sum = 0.0f;
+      int key0 = -1, key1 = -1;   // K5: every kept row's key is >= 0
       float p[A], q[A];
       load_row<A>(p, src, lane, n);
       for (int r0 = 0; r0 < n; r0 += 32) {
@@ -239,8 +237,16 @@ __global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
             acc0 = __fmaf_rn(m0[k], pr, acc0);
             acc1 = __fmaf_rn(m1[k], pr, acc1);
           }
-          best0 = fmaxf(best0, round_out<BF16>(acc0));
-          best1 = fmaxf(best1, round_out<BF16>(acc1));
+          const float v0 = round_out<BF16>(acc0);
+          const float v1 = round_out<BF16>(acc1);
+          if constexpr (ARGMAX) {
+            const int rank = 4095 - (r0 + r);
+            key0 = max(key0, (mono16(v0) << 12) | rank);
+            key1 = max(key1, (mono16(v1) << 12) | rank);
+          } else {
+            best0 = fmaxf(best0, v0);
+            best1 = fmaxf(best1, v1);
+          }
           if (lane < 3)
             sum = __fadd_rn(sum, lane == 0 ? xyz[0]
                                  : lane == 1 ? xyz[1] : xyz[2]);
@@ -248,7 +254,17 @@ __global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
 #pragma unroll
         for (int k = 0; k < A; ++k) p[k] = q[k];
       }
-      if (n == 0) best0 = best1 = BIG_NEG;
+      int pos0 = -1, pos1 = -1;
+      if constexpr (ARGMAX) {
+        best0 = unmono16(key0 >> 12);
+        best1 = unmono16(key1 >> 12);
+        pos0 = start + 4095 - (key0 & 4095);
+        pos1 = start + 4095 - (key1 & 4095);
+      }
+      if (n == 0) {
+        best0 = best1 = BIG_NEG;
+        pos0 = pos1 = -1;
+      }
       const size_t row = static_cast<size_t>(cell) * C;
       if (C % 2 == 0 && ch1 < C) {
         if (BF16)
@@ -262,6 +278,15 @@ __global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
         if (ch0 < C) store_out<BF16>(best0, a.smax, row + ch0);
         if (ch1 < C) store_out<BF16>(best1, a.smax, row + ch1);
       }
+      if constexpr (ARGMAX) {
+        if (C % 2 == 0 && ch1 < C) {
+          *reinterpret_cast<int2*>(a.argpos + row + ch0) =
+              make_int2(pos0, pos1);
+        } else {
+          if (ch0 < C) a.argpos[row + ch0] = pos0;
+          if (ch1 < C) a.argpos[row + ch1] = pos1;
+        }
+      }
       if (blockIdx.y == 0 && lane < 4)
         a.tot[static_cast<size_t>(cell) * 4 + lane] =
             lane < 3 ? sum : static_cast<float>(n);
@@ -271,7 +296,7 @@ __global__ void __launch_bounds__(WARPS * 32) scan_cells(Cells a) {
 
 // a persistent grid: as many blocks as fill the card, at most one warp a
 // cell
-template <bool BF16, int A>
+template <bool BF16, int A, bool ARGMAX>
 cudaError_t launch_cells(const Cells& a, cudaStream_t st) {
   static int resident = 0;   // blocks the card holds at once
   if (resident == 0) {
@@ -281,7 +306,7 @@ cudaError_t launch_cells(const Cells& a, cudaStream_t st) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, scan_cells<BF16, A>, WARPS * 32, 0);
+          &per_sm, scan_cells<BF16, A, ARGMAX>, WARPS * 32, 0);
     if (err != cudaSuccess) return err;
     resident = sms * per_sm;
   }
@@ -289,21 +314,21 @@ cudaError_t launch_cells(const Cells& a, cudaStream_t st) {
                          WARPS;
   const dim3 grid(static_cast<unsigned>(want < resident ? want : resident),
                   (a.C + 63) / 64);
-  scan_cells<BF16, A><<<grid, WARPS * 32, 0, st>>>(a);
+  scan_cells<BF16, A, ARGMAX><<<grid, WARPS * 32, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool BF16>
+template <bool BF16, bool ARGMAX>
 cudaError_t launch_cells(const Cells& a, int A, cudaStream_t st) {
   switch (A) {
-    case 1: return launch_cells<BF16, 1>(a, st);
-    case 2: return launch_cells<BF16, 2>(a, st);
-    case 3: return launch_cells<BF16, 3>(a, st);
-    case 4: return launch_cells<BF16, 4>(a, st);
-    case 5: return launch_cells<BF16, 5>(a, st);
-    case 6: return launch_cells<BF16, 6>(a, st);
-    case 7: return launch_cells<BF16, 7>(a, st);
-    default: return launch_cells<BF16, 8>(a, st);
+    case 1: return launch_cells<BF16, 1, ARGMAX>(a, st);
+    case 2: return launch_cells<BF16, 2, ARGMAX>(a, st);
+    case 3: return launch_cells<BF16, 3, ARGMAX>(a, st);
+    case 4: return launch_cells<BF16, 4, ARGMAX>(a, st);
+    case 5: return launch_cells<BF16, 5, ARGMAX>(a, st);
+    case 6: return launch_cells<BF16, 6, ARGMAX>(a, st);
+    case 7: return launch_cells<BF16, 7, ARGMAX>(a, st);
+    default: return launch_cells<BF16, 8, ARGMAX>(a, st);
   }
 }
 
@@ -319,10 +344,10 @@ extern "C" int affine_scan_gather(const void* pts, const void* starts,
   const Cells a{static_cast<const float*>(pts), static_cast<const int*>(starts),
                 static_cast<const int*>(counts),
                 static_cast<const float*>(mmat), static_cast<float*>(tot),
-                smax, ncells, C, cap};
+                smax, nullptr, ncells, C, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_bf16) return launch_cells<true>(a, A, st);
-  return launch_cells<false>(a, A, st);
+  if (out_bf16) return launch_cells<true, false>(a, A, st);
+  return launch_cells<false, false>(a, A, st);
 }
 
 // K4 (packed = 0) and K5 (packed = 1: bf16 only, 0 <= cap <= 4096); argpos
@@ -337,6 +362,14 @@ extern "C" int affine_scan_argmax(const void* pts, const void* starts,
     return cudaErrorInvalidValue;
   if (ncells == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (packed) {
+    const Cells a{static_cast<const float*>(pts),
+                  static_cast<const int*>(starts),
+                  static_cast<const int*>(counts),
+                  static_cast<const float*>(mmat), static_cast<float*>(tot),
+                  smax, static_cast<int*>(argpos), ncells, C, cap};
+    return launch_cells<true, true>(a, A, st);
+  }
   const int threads = ((C < 4 ? 4 : C) + 31) / 32 * 32;
   const float* p = static_cast<const float*>(pts);
   const int* s = static_cast<const int*>(starts);
@@ -344,14 +377,11 @@ extern "C" int affine_scan_argmax(const void* pts, const void* starts,
   const float* m = static_cast<const float*>(mmat);
   float* t = static_cast<float*>(tot);
   int* a = static_cast<int*>(argpos);
-  if (packed)
-    scan_gather<true, PACKED><<<ncells, threads, 0, st>>>(p, A, s, c, m, C,
-                                                          cap, t, smax, a);
-  else if (out_bf16)
-    scan_gather<true, PAIR><<<ncells, threads, 0, st>>>(p, A, s, c, m, C, cap,
-                                                        t, smax, a);
+  if (out_bf16)
+    scan_gather<true><<<ncells, threads, 0, st>>>(p, A, s, c, m, C, cap, t,
+                                                  smax, a);
   else
-    scan_gather<false, PAIR><<<ncells, threads, 0, st>>>(p, A, s, c, m, C,
-                                                         cap, t, smax, a);
+    scan_gather<false><<<ncells, threads, 0, st>>>(p, A, s, c, m, C, cap, t,
+                                                   smax, a);
   return cudaGetLastError();
 }

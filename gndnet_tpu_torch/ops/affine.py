@@ -8,7 +8,9 @@ modes as read by `_make_scan_gather`, of `affine_bwd_dmmat`, and of
 launches its hand-written kernel (`csrc/cell_histogram.cu`,
 `csrc/affine_scan.cu`, `csrc/affine_bwd.cu`) for CUDA tensors and runs its
 plain PyTorch version for CPU tensors; the plain versions also run on the
-card as the kernels' oracle.
+card as the kernels' oracle.  K3's two wrappers, `histogram_counts` and
+`histogram_ends`, launch it through `cell_histogram`, which keeps its
+count of launches.
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ from gndnet_tpu_torch import _ext
 
 BIG_NEG = -3.0e38   # smax of an empty cell (pallas_affine._BIG_NEG)
 PACKED_MAX_CAP = 4096   # K5's 12-bit rank field
+# K3's cluster (cell_histogram.cu): 16 CTAs of 58 048 int32 counters each
+HIST_CTA_CELLS = 58_048
+HIST_CLUSTER = 16
+HIST_CLUSTER_MAX_CELLS = HIST_CLUSTER * HIST_CTA_CELLS
 
 
 # ---------------------------------------------------------------------------
@@ -46,6 +52,45 @@ def histogram_counts_plain(local_cells: torch.Tensor, ny: int,
     return counts[:-1].view(b, ny, nx)
 
 
+def histogram_cluster(ncells: int) -> int:
+    """K3's size rule, by the grid's cell count alone: one cluster of
+    HIST_CLUSTER CTAs per item (16, faster than 8 on every shipped grid:
+    PERF.md §6) up to HIST_CLUSTER_MAX_CELLS cells, which its shared
+    memory holds; 0, the global-memory route, above."""
+    if ncells < 1:
+        raise ValueError("a grid has at least one cell")
+    return HIST_CLUSTER if ncells <= HIST_CLUSTER_MAX_CELLS else 0
+
+
+def cell_histogram(local_cells: torch.Tensor, ny: int, nx: int,
+                   want_ends: bool, cluster: int | None = None):
+    """Launch K3 on the card: (ends or None, counts), both (B, ny*nx) int32,
+    the counts of `histogram_counts_plain` and the ends of
+    `histogram_ends_plain`.  `cluster` overrides `histogram_cluster` (a
+    power of two up to 16, or 0 for the global route); the card tests use
+    it to reach every route."""
+    _check_ids(local_cells)
+    _ext.require_cuda(local_cells, "local_cells")
+    b, n = local_cells.shape
+    nc = ny * nx
+    if b == 0 or nc == 0:
+        raise ValueError("histogram needs at least one item and one cell")
+    if cluster is None:
+        cluster = histogram_cluster(nc)
+    counts = torch.empty((b, nc), dtype=torch.int32,
+                         device=local_cells.device)
+    ends = torch.empty_like(counts) if want_ends else None
+    fn = _ext.function("cell_histogram_i32")
+    _ext.check(fn(local_cells.data_ptr(), counts.data_ptr(),
+                  None if ends is None else ends.data_ptr(), b, n, nc,
+                  cluster, _ext.stream_ptr(counts)), "cell_histogram_i32")
+    cell_histogram.launches += 1
+    return ends, counts
+
+
+cell_histogram.launches = 0
+
+
 def histogram_counts(local_cells: torch.Tensor, ny: int,
                      nx: int) -> torch.Tensor:
     """Wrapper of K3: the counts of `histogram_counts_plain`, from the
@@ -53,30 +98,26 @@ def histogram_counts(local_cells: torch.Tensor, ny: int,
     _check_ids(local_cells)
     if local_cells.device.type == "cpu":
         return histogram_counts_plain(local_cells, ny, nx)
-    _ext.require_cuda(local_cells, "local_cells")
-    b, n = local_cells.shape
-    if b == 0 or ny * nx == 0:
-        raise ValueError("histogram needs at least one item and one cell")
-    out = torch.empty((b, ny, nx), dtype=torch.int32,
-                      device=local_cells.device)
-    fn = _ext.function("cell_histogram_i32")
-    _ext.check(fn(local_cells.data_ptr(), out.data_ptr(), b, n, ny * nx,
-                  _ext.stream_ptr(out)), "cell_histogram_i32")
-    histogram_counts.launches += 1
-    return out
+    return cell_histogram(local_cells, ny, nx, False)[1].view(-1, ny, nx)
 
 
-histogram_counts.launches = 0
-
-
-def histogram_ends(local_cells: torch.Tensor, ny: int, nx: int, *,
-                   counts_fn=histogram_counts):
+def histogram_ends_plain(local_cells: torch.Tensor, ny: int, nx: int):
     """Per-item run END row of every cell of a sorted id stream:
     ends = cumsum(counts) - 1 clipped at 0 (meaningless for empty cells).
     Returns (ends, counts), both (B, ny*nx) int32."""
-    counts = counts_fn(local_cells, ny, nx).reshape(local_cells.shape[0], -1)
+    counts = histogram_counts_plain(local_cells, ny, nx).reshape(
+        local_cells.shape[0], -1)
     ends = (torch.cumsum(counts, dim=-1) - 1).clamp_(min=0).to(torch.int32)
     return ends, counts
+
+
+def histogram_ends(local_cells: torch.Tensor, ny: int, nx: int):
+    """Wrapper of K3 with its ends: (ends, counts) of
+    `histogram_ends_plain`, from one kernel launch for CUDA tensors."""
+    _check_ids(local_cells)
+    if local_cells.device.type == "cpu":
+        return histogram_ends_plain(local_cells, ny, nx)
+    return cell_histogram(local_cells, ny, nx, True)
 
 
 # ---------------------------------------------------------------------------

@@ -385,8 +385,8 @@ def cell_stream(points: torch.Tensor, ctx: PointContext,
     m, f = points.shape
     n = m // b
     c3 = geom.num_cells_3d
-    counts_fn = (affine.histogram_counts_plain if reference
-                 else affine.histogram_counts)
+    ends_fn = (affine.histogram_ends_plain if reference
+               else affine.histogram_ends)
     # every item has its own cell space [0, c3] (c3: its drop id); within a
     # cell the rows keep scan order, so each run lists its points in order
     dev = points.device
@@ -413,8 +413,7 @@ def cell_stream(points: torch.Tensor, ctx: PointContext,
     else:
         local_s, order = torch.sort(local, dim=-1, stable=True)
     spts = points.reshape(b, n, f)[item.long()[:, None], order].reshape(m, f)
-    ends, counts = affine.histogram_ends(local_s, geom.ny, geom.nx,
-                                         counts_fn=counts_fn)
+    ends, counts = ends_fn(local_s, geom.ny, geom.nx)
     # global run starts in the flat (b * n) stream
     starts = (ends - counts + 1 + item[:, None] * n).reshape(-1)
     return spts, starts.contiguous(), counts.reshape(-1)

@@ -19,7 +19,10 @@ whose name contains S.
 The JAX script sweeps the chunk size of each TPU kernel (512-2048 lanes);
 the card's kernels tile by their own rules, so the sweep collapses to one
 case per type: `kernel_only_102k_{f32,bf16}` (K8) and `kernel_t_102k`
-(K2).  Needs a CUDA device; fails without one.
+(K2).  The training scans have cases of their own at kitti_sem's B=2
+shapes, `argmax_packed_B2` (K5) and `argmax_pair_B2_f32` (K4), and K3
+has `histogram_counts_102k` beside the `histogram_ends_*` cases.  Needs a
+CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ class Setup:
         self.fine_pts = self.fine.device_points(self.fine_padded)
         self.bcast_shape = bcast_shape
         self._bcast = None
+        self._argmax = None
 
         # the JAX profile's kernel inputs at the padded scan length: sorted
         # random cells of the grid, pts8 [xyz ~ N(0, 1), kept 1, extra ~
@@ -128,6 +132,25 @@ class Setup:
             self._bcast = (torch.from_numpy(cell).to(self.device), vals)
         return self._bcast
 
+    def argmax_inputs(self):
+        """K4/K5's inputs at kitti_sem's B=2 training shapes (20 000
+        cells), made on first use: the first two scans' cell-sorted
+        stream, run starts and counts, and the PFN's per-point matrix."""
+        if self._argmax is None:
+            model = self.engine.model
+            pts = self.pts16[:2]
+            ctx = pz.bin_points_batch(pts, model.geom)
+            spts, starts, counts = pz.cell_stream(
+                pts.reshape(-1, pts.shape[-1]), ctx, model.geom)
+            kernel, bias = (model.voxel_feature_extractor.pfn_layers[0]
+                            .effective_affine())
+            mmat = pz.affine_pfn_weights(kernel, bias, pts.shape[-1],
+                                         model.geom,
+                                         self.cfg.with_distance)[0]
+            self._argmax = (spts.contiguous(), starts, counts,
+                            mmat.detach().float().contiguous())
+        return self._argmax
+
     def sorted_gather(self, pts, geom, pair: bool):
         """Bin, sort the (cell, index) keys of one scan (K1 on the packed
         key, or K10 on the pair), gather the rows."""
@@ -158,6 +181,11 @@ def cases(s: Setup) -> dict:
         0, cells + 1, (1, n_pad)).astype(np.int32)).to(dev), dim=-1).values
     loc16 = torch.sort(torch.from_numpy(np.random.default_rng(0).integers(
         0, cells + 1, (16, n_pad)).astype(np.int32)).to(dev), dim=-1).values
+    fine_cells = s.fine_cfg.ny * s.fine_cfg.nx
+    loc_fine = torch.sort(torch.from_numpy(np.random.default_rng(0).integers(
+        0, fine_cells + 1, (1, n_pad)).astype(np.int32)).to(dev),
+        dim=-1).values
+    cap = cfg.max_points_voxel
     pts4 = s.pts8[:, :4].contiguous()
     mmat4 = s.mmat8[:4].contiguous()
 
@@ -195,6 +223,14 @@ def cases(s: Setup) -> dict:
             loc, cfg.ny, cfg.nx),
         "histogram_ends_B16": lambda: affine.histogram_ends(
             loc16, cfg.ny, cfg.nx),
+        "histogram_ends_fine_grid": lambda: affine.histogram_ends(
+            loc_fine, s.fine_cfg.ny, s.fine_cfg.nx),
+        "histogram_counts_102k": lambda: affine.histogram_counts(
+            loc, cfg.ny, cfg.nx),
+        "argmax_packed_B2": lambda: affine.affine_scan_argmax_packed(
+            *s.argmax_inputs(), cap, torch.bfloat16),
+        "argmax_pair_B2_f32": lambda: affine.affine_scan_argmax_pair(
+            *s.argmax_inputs(), cap, torch.float32),
         "kernel_only_102k_f32": lambda: affine_aux.affine_segment_scan(
             s.cell_k, s.pts8, s.mmat8, out_dtype=torch.float32,
             chunk=1024),

@@ -40,15 +40,36 @@ def test_sort_kernel(dev, n):
         assert torch.equal(got, sort.sort_i32_plain(x))
 
 
-@pytest.mark.parametrize("ny,nx", [(10, 13), (100, 100), (250, 250)])
-def test_histogram_kernel(dev, ny, nx):
-    """Shared-memory counters up to 12288 cells, global atomics above."""
-    rng = np.random.default_rng(ny)
-    ids = torch.from_numpy(rng.integers(0, ny * nx + 1, (2, 50_000)).astype(
+@pytest.mark.parametrize("ny,nx,batch", [
+    (10, 13, 2), (100, 100, 2), (100, 100, 16), (250, 250, 2),
+    (2, affine.HIST_CLUSTER_MAX_CELLS // 2 + 1, 2)])
+def test_histogram_kernel(dev, ny, nx, batch):
+    """K3: one cluster launch a call up to HIST_CLUSTER_MAX_CELLS cells
+    (kitti_sem at B=2 and at an `infer_many` burst's B=16, fine_grid's
+    250x250), the global route just above: counts and ends equal to the
+    plain versions on unsorted and sorted ids, one launch counted a call;
+    every cluster size that holds the grid, and the global route, on the
+    smaller grids."""
+    rng = np.random.default_rng(ny + batch)
+    nc = ny * nx
+    ids = torch.from_numpy(rng.integers(0, nc + 1, (batch, 50_000)).astype(
         np.int32)).to(dev)
+    routes = [0] + [g for g in (1, 2, 4, 8, 16)
+                    if nc <= g * affine.HIST_CTA_CELLS] if nc <= 62_500 else []
     for x in (ids, ids.sort(dim=1).values.contiguous()):
-        assert torch.equal(affine.histogram_counts(x, ny, nx),
-                           affine.histogram_counts_plain(x, ny, nx))
+        want_ends, want_counts = affine.histogram_ends_plain(x, ny, nx)
+        before = affine.cell_histogram.launches
+        counts = affine.histogram_counts(x, ny, nx)
+        ends, counts2 = affine.histogram_ends(x, ny, nx)
+        assert affine.cell_histogram.launches == before + 2
+        assert counts.shape == (batch, ny, nx)
+        assert torch.equal(counts.reshape(batch, -1), want_counts)
+        assert torch.equal(counts2, want_counts)
+        assert torch.equal(ends, want_ends)
+        for g in routes:
+            ends, counts = affine.cell_histogram(x, ny, nx, True, g)
+            assert torch.equal(counts, want_counts), g
+            assert torch.equal(ends, want_ends), g
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -113,6 +134,62 @@ def test_argmax_scan_kernels(dev, dtype, cap, a):
     assert torch.equal(smax.float(), smax_p.float())
     assert torch.equal(pos, pos_p)
     assert int(pos[11].max()) == -1
+
+
+def _kitti_train_stream(dev):
+    """kitti_sem's B=2 training inputs to K5 from `synthetic.py` scans:
+    the cell-sorted stream, run starts and counts (20 000 cells), and a
+    random (4, 64) mmat."""
+    from gndnet_tpu_torch.config import kitti_sem_config
+    from gndnet_tpu_torch.ops import pillarize as pz
+    cfg = kitti_sem_config()
+    rng = np.random.default_rng(2)
+    points, _ = synthetic_labelled_batch(cfg, rng, 2, cfg.num_points)
+    pts = torch.from_numpy(points).to(dev)
+    geom = pz.PillarGeometry.from_config(cfg)
+    ctx = pz.bin_points_batch(pts, geom)
+    spts, starts, counts = pz.cell_stream(pts.reshape(-1, pts.shape[-1]),
+                                          ctx, geom)
+    mmat = torch.from_numpy(rng.normal(size=(pts.shape[-1], 64)).astype(
+        np.float32)).to(dev)
+    return spts.contiguous(), starts, counts, mmat
+
+
+@pytest.mark.parametrize("case,width", [
+    ("kitti_B2", 64), ("one_cell_cap100", 64), ("one_cell_cap4096", 64),
+    ("kitti_B2", 24), ("kitti_B2", 100), ("kitti_B2", 129), ("empty", 64)])
+def test_argmax_scan_kernel_serving_shapes(dev, case, width):
+    """K5 (a warp per cell, K2's body with the packed argmax key) at
+    kitti_sem's B=2 training shapes from `synthetic.py`, one cell of 5 000
+    points at cap 100 and at cap 4096 (the key's 12-bit rank field), 24 /
+    100 / 129 channels (channel groups, odd widths without paired stores),
+    and every cell empty: tot, smax and argpos equal to the plain
+    version's, one launch a call."""
+    spts, starts, counts, mmat = _kitti_train_stream(dev)
+    rng = np.random.default_rng(width)
+    cap = 100
+    if width != 64:
+        mmat = torch.from_numpy(rng.normal(size=(mmat.shape[0], width))
+                                .astype(np.float32)).to(dev)
+    if case.startswith("one_cell"):
+        cap = int(case[len("one_cell_cap"):])
+        counts = torch.zeros_like(counts)
+        counts[12_345] = 5000
+        starts = torch.zeros_like(starts)
+        spts = torch.from_numpy((rng.normal(size=(5000, spts.shape[1]))
+                                 * 10).astype(np.float32)).to(dev)
+    if case == "empty":
+        counts = torch.zeros_like(counts)
+    before = affine.affine_scan_argmax_packed.launches
+    got = affine.affine_scan_argmax_packed(spts, starts, counts, mmat, cap,
+                                           torch.bfloat16)
+    assert affine.affine_scan_argmax_packed.launches == before + 1
+    want = affine.affine_scan_argmax_plain(spts, starts, counts, mmat, cap,
+                                           torch.bfloat16, True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if case == "kitti_B2":
+        assert int(counts.max()) > cap and int((counts > 0).sum()) > 1000
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -591,7 +668,7 @@ def test_infer_many_matches_infer(dev, grid):
         sizes, pair_sort = (3100, 3500, 4000), sort.sort_i32
     rng = np.random.default_rng(1)
     scans = [synthetic_scan(cfg, rng, n) for n in sizes]
-    counted = (sort.sort_i32, sort.sort2_i32, affine.histogram_counts,
+    counted = (sort.sort_i32, sort.sort2_i32, affine.cell_histogram,
                affine.affine_scan_gather)
     with no_tf32(True):
         before = [fn.launches for fn in counted]

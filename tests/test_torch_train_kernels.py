@@ -196,3 +196,52 @@ def test_training_kernels_reject_bad_input():
     with pytest.raises(ValueError):
         affine.affine_bwd_dmmat(pts, torch.zeros((2, 8)), torch.zeros((2, 8)),
                                 s, torch.float32)
+
+
+def test_packed_argmax_rank_field_edge_matches_pallas():
+    """K5 at cap 4096, the edge of the key's 12-bit rank field: one run of
+    4 200 points whose unique maximum of channel 0 sits at rank 4095, the
+    last kept row, with larger rows beyond the cap, and ties of channel 1
+    at ranks 4000 and 4090; beside it short runs and the drop id.  smax
+    and argpos equal `affine_scan_t(..., packed_argmax=True)` in
+    interpret mode, decoded as `_make_scan_gather` decodes it."""
+    rng = np.random.default_rng(4096)
+    cap, ncells, n = affine.PACKED_MAX_CAP, 6, 4608
+    cell = np.concatenate([np.zeros(4200), np.sort(rng.integers(
+        1, ncells + 1, n - 4200))]).astype(np.int32)
+    cell[-8:] = ncells                                    # drop rows
+    pts = (rng.normal(size=(n, A)) * 3).astype(np.float32)
+    pts[:, 0] = np.abs(pts[:, 0])
+    pts[4095] = [40.0, 0.5, 0.5, 0.5]
+    pts[4096:4200] = [80.0, 0.5, 0.5, 0.5]                # beyond the cap
+    pts[4090] = pts[4000] = [0.25, 50.0, 0.0, 0.0]
+    mmat = np.zeros((A, C), np.float32)
+    mmat[0, 0] = 1.0                                      # channel 0: x
+    mmat[1, 1] = 1.0                                      # channel 1: y
+    mmat[:, 2:] = rng.normal(size=(A, C - 2))
+    valid = (cell < ncells).astype(np.float32)
+    outs = affine_scan_t(
+        jnp.asarray(cell), jnp.asarray(pts.T), jnp.asarray(valid),
+        jnp.asarray(mmat.T), max_points=cap, out_dtype=jnp.bfloat16,
+        chunk=512, transpose_out=True, precision=HIGHEST, want_argmax=True,
+        packed_argmax=True, interpret=True)
+    counts = np.bincount(cell, minlength=ncells + 1)[:ncells].astype(
+        np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    key = np.asarray(outs[1])[np.maximum(starts + np.minimum(counts, cap)
+                                         - 1, 0)]
+    bits = np.where(key >> 12 >= 32768, (key >> 12) - 32768,
+                    65535 - (key >> 12))
+    want_smax = np.asarray(jnp.asarray(bits.astype(np.uint16)).view(
+        jnp.bfloat16).astype(jnp.float32))
+    want_pos = starts[:, None] + (4095 - (key & 4095))
+    tot, smax, argpos = affine.affine_scan_argmax_packed(
+        torch.from_numpy(pts), torch.from_numpy(starts),
+        torch.from_numpy(counts), torch.from_numpy(mmat), cap,
+        torch.bfloat16)
+    occ = counts > 0
+    assert counts[0] == 4200 and occ.all()
+    np.testing.assert_array_equal(smax.float().numpy(), want_smax)
+    np.testing.assert_array_equal(argpos.numpy(), want_pos)
+    assert argpos[0, 0] == 4095 and smax[0, 0] == 40.0
+    assert argpos[0, 1] == 4000 and tot[0, 3] == cap
