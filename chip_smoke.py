@@ -19,8 +19,8 @@ Phases, each printing one JSON line:
      and their rows add the bitonic kernel's time at the main path's shape
      (`earlier_ms`), and the kernels one call of the wrapper and of the
      library call enqueue, with their device time (torch.profiler).  The
-     K2-K5 and K7 rows add the device operations one call enqueues and
-     their device time: one for K2-K5, at most two (a memset and the
+     K2-K6 and K7 rows add the device operations one call enqueues and
+     their device time: one for K2-K6, at most two (a memset and the
      kernel) for K7.  K3 is checked on every route (each cluster size, the
      global route above its capacity, which the card must confirm), with
      its ends, on a B=16 burst and on fine_grid's ids, and reports the
@@ -35,9 +35,11 @@ Phases, each printing one JSON line:
   6. train: kitti_sem training at B=2 (bf16, 'default', affine) on
      synthetic labelled scans through make_train_step: K3, K5 and K6 must
      launch and no other kernel, the loss must stay finite and every
-     parameter move; steps/s at B=2 and at B=16 (bench.py's train batch);
+     parameter move; steps/s at B=2 and at B=16 (bench.py's train batch),
+     and the device operations and device ms of a B=2 step;
   7. train_parity: three float32 / 'highest' train steps with TF32 off,
-     kernel path (K4, K6) against the plain path;
+     kernel path (K4, K6) against the plain path, and the device
+     operations and device ms of a kernel-path step;
   8. serve_sorted: the same serving with fused_impl='sorted': K7 must
      launch 3 times per scan and no other kernel;
   9. serve_scatter: kitti_sem_config() exactly as shipped ('scatter',
@@ -425,7 +427,7 @@ def check_argmax(spts, starts, counts, mmat, cap, packed: bool,
     """K5 (packed) at bf16 / cap, or K4 at f32 / cap (the f32 training
     path), plus bf16 without a cap (K4), a single point, no points, and one
     cell of 5 000 points at cap 100 and at cap 4096 (the packed key's
-    12-bit rank field)."""
+    12-bit rank field), and for K4 without a cap."""
     dtype = torch.bfloat16 if packed else torch.float32
     cases = [(spts, counts, cap, dtype, "kitti B=2")]
     if not packed:
@@ -441,6 +443,9 @@ def check_argmax(spts, starts, counts, mmat, cap, packed: bool,
                                  * 10).astype(np.float32)).cuda()
     cases += [(long_pts, long_run, c, dtype, f"5000-point cell, cap {c}")
               for c in (100, affine.PACKED_MAX_CAP)]
+    if not packed:           # past the packed key's 4096 rows
+        cases.append((long_pts, long_run, None, dtype,
+                      "5000-point cell, no cap"))
     for pts, cnt, c, dt, what in cases:
         argmax_case(pts, starts if pts is spts else s0, cnt, mmat, c, dt,
                     what)
@@ -475,10 +480,14 @@ def check_argmax(spts, starts, counts, mmat, cap, packed: bool,
 
 def check_dmmat(spts, starts, counts, mmat, cap, rng) -> dict:
     """K6 against its plain version on the argmax rows of K5 (bf16, the
-    flagship) and K4 (f32), within DMMAT_RTOL of the result's scale, and
-    the same bits on a second run."""
+    flagship) and K4 (f32), within DMMAT_RTOL of the result's scale, the
+    same bits in 20 calls, and one device operation a call.  Its bound
+    counts what the function must read: the counts, the argpos and d_smax
+    rows of the occupied cells, the distinct argmax rows of pts, and the
+    output (`bound_ms_full_tables`: every cell's rows, as charged before
+    the kernel skipped empty cells)."""
     worst = 0.0
-    inputs = {}
+    inputs, device = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         fn = (affine.affine_scan_argmax_packed if dtype == torch.bfloat16
               else affine.affine_scan_argmax_pair)
@@ -486,31 +495,45 @@ def check_dmmat(spts, starts, counts, mmat, cap, rng) -> dict:
         d = torch.from_numpy(rng.normal(size=tuple(smax.shape)).astype(
             np.float32)).cuda().to(dtype)
         got = affine.affine_bwd_dmmat(spts, pos, d, counts, dtype)
-        again = affine.affine_bwd_dmmat(spts, pos, d, counts, dtype)
+        again = [affine.affine_bwd_dmmat(spts, pos, d, counts, dtype)
+                 for _ in range(19)]
         torch.cuda.synchronize()
         want = affine.affine_bwd_dmmat_plain(spts, pos, d, counts, dtype)
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         require(err <= DMMAT_RTOL * scale,
                 f"K6 {dtype}: |err| {err} over {DMMAT_RTOL} x {scale}")
-        require(torch.equal(got, again), f"K6 {dtype}: runs differ")
+        require(all(torch.equal(got, g) for g in again),
+                f"K6 {dtype}: calls differ")
         worst = max(worst, err)
         inputs[dtype] = (pos, d)
+        device[dtype] = device_profile(
+            lambda: affine.affine_bwd_dmmat(spts, pos, d, counts, dtype))
+        require(round(device[dtype][0]) == 1, f"affine_bwd_dmmat {dtype} "
+                f"enqueues {device[dtype][0]} device operations a call, "
+                "not 1")
     dtype = torch.bfloat16                     # timed: the flagship's type
     pos, d = inputs[dtype]
-    live = (counts > 0)[:, None] & (pos >= 0)
+    occupied = counts > 0
+    live = occupied[:, None] & (pos >= 0)
     rows = int(torch.unique(pos[live]).numel())
     a, width = mmat.shape
-    ncells = counts.numel()
-    bytes_moved = (4 * ncells * width + 2 * ncells * width + 4 * ncells
-                   + 4 * a * rows + 4 * a * width)
+    ncells, occ = counts.numel(), int(occupied.sum())
+    rest = 4 * ncells + 4 * a * rows + 4 * a * width
+    bytes_moved = (4 + 2) * occ * width + rest
+    full_tables = (4 + 2) * ncells * width + rest
     ops = 2 * a * int(live.sum())
     return {"name": "affine_bwd_dmmat", "max_abs_err": worst,
             "ms": time_ms(lambda: affine.affine_bwd_dmmat(
                 spts, pos, d, counts, dtype)),
             "plain_ms": time_ms(lambda: affine.affine_bwd_dmmat_plain(
                 spts, pos, d, counts, dtype)),
-            "library_ms": None, **bound(bytes_moved, ops)}
+            "library_ms": None,
+            "device_launches_per_call": device[dtype][0],
+            "device_ms": device[dtype][1],
+            "device_ms_f32": device[torch.float32][1],
+            "bound_ms_full_tables": bound(full_tables, ops)["bound_ms"],
+            **bound(bytes_moved, ops)}
 
 
 def bound(bytes_moved: int, ops: int) -> dict:
@@ -660,6 +683,7 @@ def train_phase(cfg, sd, rng) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = read_launches((K3, K5, K6), "train")
+    ops, device_ms = device_profile(lambda: step(state, points, labels))
     losses = [float(v) for v in losses]
     require(all(np.isfinite(losses)), f"train losses finite: {losses}")
     moved = {k: bool((v != before[k]).any())
@@ -684,6 +708,7 @@ def train_phase(cfg, sd, rng) -> dict:
         "seconds": elapsed, "steps_per_s": steps / elapsed,
         "scans_per_s": steps * TRAIN_BATCH / elapsed, "losses": losses,
         "launches": launches, "params_moved": len(moved),
+        "device_ops_per_step": ops, "device_ms_per_step": device_ms,
         "bench_batch": BENCH_BATCH, "bench_steps": big_steps,
         "bench_steps_per_s": big_steps / big_elapsed,
         "bench_scans_per_s": big_steps * BENCH_BATCH / big_elapsed,
@@ -739,13 +764,15 @@ def train_parity(cfg, sd, rng) -> dict:
     after = max(float((pk[n] - w).abs().max()) / max(float(w.abs().max()),
                                                      1e-12)
                 for n, w in pp.items())
+    ops, device_ms = device_profile(lambda: step_k(kern, points, labels))
     return {"launches": launches, "result": {
         "phase": "train_parity_f32", "steps": 3, "losses_kernel": lk,
         "losses_plain": lp, "loss_rel_diff": d_loss,
         "loss_rtol": TRAIN_LOSS_RTOL,
         "step1_segnet_param_diff_of_scale": seg,
         "step1_pfn_param_diff_of_scale": pfn, "pfn_rtol": PFN_RTOL,
-        "step3_param_diff_of_scale": after, "launches": launches}}
+        "step3_param_diff_of_scale": after, "launches": launches,
+        "device_ops_per_step": ops, "device_ms_per_step": device_ms}}
 
 
 def sorted_path_inputs(engine, padded: torch.Tensor):
@@ -1417,6 +1444,7 @@ def run(cfg, n_points: int, device) -> list:
             "library": row.get("library"),
             **{k: row[k] for k in ("earlier_ms", "earlier",
                                    "device_launches_per_call", "device_ms",
+                                   "device_ms_f32", "bound_ms_full_tables",
                                    "library_device_launches_per_call",
                                    "library_device_ms", "capacity",
                                    "counts_ms", "counts_device_ms",

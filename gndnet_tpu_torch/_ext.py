@@ -46,8 +46,8 @@ SIGNATURES = {
                                            _I, _I, _I, _P]),
     "affine_scan_argmax": ("affine_scan", [_P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _I, _I, _P]),
-    "affine_bwd_dmmat": ("affine_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                        _I, _P]),
+    "affine_bwd_dmmat": ("affine_bwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, _P]),
     "suffix_segment_reduce": ("suffix_segment", [_P, _P, _P, _P, _L, _I, _I,
                                                  _I, _I, _I, _P]),
     "affine_segment_scan": ("prefix_segment", [_P, _P, _P, _P, _P, _P, _P, _L,

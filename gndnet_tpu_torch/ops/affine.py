@@ -376,9 +376,39 @@ def affine_bwd_dmmat_plain(pts, argpos, d_smax, counts, out_dtype):
     return torch.einsum("nc,nca->ac", d, rows)
 
 
+DMMAT_WARPS = 8   # warps a block of csrc/affine_bwd.cu
+DMMAT_CHUNK = 16  # cells a warp of it takes at once
+DMMAT_CLUSTER = 8  # blocks a cluster of it
+_dmmat_tickets: dict = {}   # device -> K6's ticket, 0 between calls
+
+
+def dmmat_blocks(ncells: int, device) -> int:
+    """K6's grid: one block of DMMAT_WARPS warps per DMMAT_CHUNK *
+    DMMAT_WARPS cells, at most two a streaming multiprocessor (what the
+    card holds at once), in whole clusters of DMMAT_CLUSTER blocks."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clusters = -(-ncells // (DMMAT_CHUNK * DMMAT_WARPS * DMMAT_CLUSTER))
+    most = max(1, 2 * sms // DMMAT_CLUSTER)
+    return DMMAT_CLUSTER * max(1, min(clusters, most))
+
+
+def _dmmat_ticket(device) -> torch.Tensor:
+    """The device's K6 ticket, made once: the kernel's last block puts it
+    back to 0, so calls ordered on one stream share it and no call needs
+    a memset."""
+    dev = torch.device(device)
+    t = _dmmat_tickets.get(dev)
+    if t is None:
+        t = _dmmat_tickets[dev] = torch.zeros(1, dtype=torch.int32,
+                                              device=dev)
+    return t
+
+
 def affine_bwd_dmmat(pts, argpos, d_smax, counts, out_dtype):
-    """Wrapper of K6: `affine_bwd_dmmat_plain`'s (A, C) d_mmat, from the
-    kernel for CUDA tensors (deterministic: no float atomics)."""
+    """Wrapper of K6: `affine_bwd_dmmat_plain`'s (A, C) d_mmat, from one
+    kernel launch for CUDA tensors (deterministic: no float atomics).
+    Calls on one device must be ordered on one stream (they share a
+    ticket), as the training step's are."""
     _check_bwd(pts, argpos, d_smax, counts, out_dtype)
     if pts.device.type == "cpu":
         return affine_bwd_dmmat_plain(pts, argpos, d_smax, counts, out_dtype)
@@ -388,13 +418,15 @@ def affine_bwd_dmmat(pts, argpos, d_smax, counts, out_dtype):
         _ext.require_cuda(t, name)
     ncells, width = argpos.shape
     a = pts.shape[1]
-    partial = torch.empty(((ncells + 63) // 64, a, width),
+    blocks = dmmat_blocks(ncells, pts.device)
+    partial = torch.empty((blocks // DMMAT_CLUSTER, a, width),
                           dtype=torch.float32, device=pts.device)
     out = torch.empty((a, width), dtype=torch.float32, device=pts.device)
     fn = _ext.function("affine_bwd_dmmat")
     _ext.check(fn(pts.data_ptr(), argpos.data_ptr(), d_smax.data_ptr(),
-                  counts.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                  ncells, a, width, int(out_dtype == torch.bfloat16),
+                  counts.data_ptr(), partial.data_ptr(),
+                  _dmmat_ticket(pts.device).data_ptr(), out.data_ptr(),
+                  ncells, a, width, blocks, int(out_dtype == torch.bfloat16),
                   _ext.stream_ptr(out)), "affine_bwd_dmmat")
     affine_bwd_dmmat.launches += 1
     return out

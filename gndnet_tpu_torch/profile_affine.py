@@ -20,9 +20,13 @@ The JAX script sweeps the chunk size of each TPU kernel (512-2048 lanes);
 the card's kernels tile by their own rules, so the sweep collapses to one
 case per type: `kernel_only_102k_{f32,bf16}` (K8) and `kernel_t_102k`
 (K2).  The training scans have cases of their own at kitti_sem's B=2
-shapes, `argmax_packed_B2` (K5) and `argmax_pair_B2_f32` (K4), and K3
-has `histogram_counts_102k` beside the `histogram_ends_*` cases.  Needs a
-CUDA device; fails without one.
+shapes, `argmax_packed_B2` (K5) and `argmax_pair_B2_f32` (K4), with K6
+on their argmax rows (`dmmat_B2_bf16`, `dmmat_B2_f32`), and K3 has
+`histogram_counts_102k` beside the `histogram_ends_*` cases.  The
+`*_empty20k`, `*_u10x20k` and `*_one5000*` cases run K4, K5 and K6 on
+20 000 cells that are all empty, that hold 10 rows each, or of which one
+holds 5 000 rows: what each costs apart from the data's run lengths.
+Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -98,6 +102,8 @@ class Setup:
         self.bcast_shape = bcast_shape
         self._bcast = None
         self._argmax = None
+        self._dmmat = {}
+        self._variants = {}
 
         # the JAX profile's kernel inputs at the padded scan length: sorted
         # random cells of the grid, pts8 [xyz ~ N(0, 1), kept 1, extra ~
@@ -151,6 +157,57 @@ class Setup:
                             mmat.detach().float().contiguous())
         return self._argmax
 
+    def dmmat_inputs(self, dtype):
+        """K6's inputs on `argmax_inputs()`: the stream, the argmax rows of
+        K5 (bf16, cap) or K4 (f32), a seeded N(0, 1) d_smax in `dtype`, and
+        the counts; made on first use."""
+        if dtype not in self._dmmat:
+            spts, starts, counts, mmat = self.argmax_inputs()
+            cap = self.cfg.max_points_voxel
+            fn = (affine.affine_scan_argmax_packed
+                  if dtype == torch.bfloat16
+                  else affine.affine_scan_argmax_pair)
+            _, smax, pos = fn(spts, starts, counts, mmat, cap, dtype)
+            gen = torch.Generator(self.device).manual_seed(6)
+            d = torch.randn(smax.shape, generator=gen,
+                            device=self.device).to(dtype)
+            self._dmmat[dtype] = (spts, pos, d, counts)
+        return self._dmmat[dtype]
+
+    def variant_inputs(self, kind: str):
+        """(pts, starts, counts) of 20 000 cells, kitti_sem's B=2 count,
+        with 4 N(0, 10^2) features a row: 'empty' (no rows), 'u10' (10
+        rows each), 'one5000' (one cell of 5 000 rows, the rest empty)."""
+        if kind not in self._variants:
+            ncells, per = 20_000, {"empty": 0, "u10": 10, "one5000": 0}[kind]
+            counts = torch.full((ncells,), per, dtype=torch.int32,
+                                device=self.device)
+            if kind == "one5000":
+                counts[ncells // 2] = 5000
+            starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+            rows = max(int(counts.sum()), 1)
+            gen = torch.Generator(self.device).manual_seed(7)
+            pts = torch.randn((rows, 4), generator=gen,
+                              device=self.device) * 10
+            self._variants[kind] = (pts, starts, counts)
+        return self._variants[kind]
+
+    def variant_dmmat(self, kind: str):
+        """K6's inputs on `variant_inputs(kind)`: K5's argmax rows (cap
+        4096) and a seeded bf16 d_smax."""
+        key = ("dmmat", kind)
+        if key not in self._variants:
+            pts, starts, counts = self.variant_inputs(kind)
+            mmat = self.argmax_inputs()[3]
+            _, smax, pos = affine.affine_scan_argmax_packed(
+                pts, starts, counts, mmat, affine.PACKED_MAX_CAP,
+                torch.bfloat16)
+            gen = torch.Generator(self.device).manual_seed(8)
+            d = torch.randn(smax.shape, generator=gen,
+                            device=self.device).to(torch.bfloat16)
+            self._variants[key] = (pts, pos, d, counts)
+        return self._variants[key]
+
     def sorted_gather(self, pts, geom, pair: bool):
         """Bin, sort the (cell, index) keys of one scan (K1 on the packed
         key, or K10 on the pair), gather the rows."""
@@ -192,6 +249,15 @@ def cases(s: Setup) -> dict:
     def canvas(net, pts):
         return net.canvas(pts[None])
 
+    def variant(kind, packed, cap, dtype):
+        def fn():
+            pts, starts, counts = s.variant_inputs(kind)
+            mmat = s.argmax_inputs()[3]
+            scan = (affine.affine_scan_argmax_packed if packed
+                    else affine.affine_scan_argmax_pair)
+            return scan(pts, starts, counts, mmat, cap, dtype)
+        return fn
+
     def fwd_plus_segment():
         pred = model.fused(s.pts[None])[0]
         return segment_cloud(s.pts, cfg.grid_range, cfg.voxel_size[0],
@@ -231,6 +297,25 @@ def cases(s: Setup) -> dict:
             *s.argmax_inputs(), cap, torch.bfloat16),
         "argmax_pair_B2_f32": lambda: affine.affine_scan_argmax_pair(
             *s.argmax_inputs(), cap, torch.float32),
+        "dmmat_B2_bf16": lambda: affine.affine_bwd_dmmat(
+            *s.dmmat_inputs(torch.bfloat16), torch.bfloat16),
+        "dmmat_B2_f32": lambda: affine.affine_bwd_dmmat(
+            *s.dmmat_inputs(torch.float32), torch.float32),
+        "argmax_pair_f32_empty20k": variant("empty", False, cap,
+                                            torch.float32),
+        "argmax_pair_f32_u10x20k": variant("u10", False, cap,
+                                           torch.float32),
+        "argmax_pair_f32_one5000_nocap": variant("one5000", False, None,
+                                                 torch.float32),
+        "argmax_packed_empty20k": variant("empty", True, cap,
+                                          torch.bfloat16),
+        "argmax_packed_u10x20k": variant("u10", True, cap, torch.bfloat16),
+        "argmax_packed_one5000_cap4096": variant(
+            "one5000", True, affine.PACKED_MAX_CAP, torch.bfloat16),
+        **{f"dmmat_bf16_{name}": (lambda kind=kind: affine.affine_bwd_dmmat(
+            *s.variant_dmmat(kind), torch.bfloat16))
+           for name, kind in (("empty20k", "empty"), ("u10x20k", "u10"),
+                              ("one5000", "one5000"))},
         "kernel_only_102k_f32": lambda: affine_aux.affine_segment_scan(
             s.cell_k, s.pts8, s.mmat8, out_dtype=torch.float32,
             chunk=1024),
