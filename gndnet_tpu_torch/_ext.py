@@ -51,7 +51,7 @@ SIGNATURES = {
     "suffix_segment_reduce": ("suffix_segment", [_P, _P, _P, _P, _L, _I, _I,
                                                  _I, _I, _I, _P]),
     "affine_segment_scan": ("prefix_segment", [_P, _P, _P, _P, _P, _P, _P, _L,
-                                               _I, _I, _I, _P]),
+                                               _I, _I, _I, _I, _P]),
     "segment_broadcast_t": ("prefix_segment", [_P, _P, _P, _P, _P, _L, _I, _I,
                                                _P]),
 }

@@ -6,9 +6,11 @@ retained row-major predecessor, and `segment_broadcast_t`, a general
 segmented-broadcast utility.  The model calls neither; the affine stage
 profile (`gndnet_tpu_torch.profile_affine`) does.  They live here and not
 in `ops/affine.py`, which holds the kernels of the model path.  Each wrapper
-launches its hand-written kernel (`csrc/prefix_segment.cu`) for CUDA
+launches its hand-written kernel (`csrc/prefix_segment.cu`: one launch a
+call, runs carried across tiles by a forward decoupled look-back) for CUDA
 tensors and runs its plain PyTorch version for CPU tensors; the plain
-versions also run on the card as the kernels' oracle.
+versions also run on the card as the kernels' oracle.  `k8_layout` and
+`k9_layout` are the kernels' launch geometry and scratch sizes.
 """
 
 from __future__ import annotations
@@ -19,6 +21,51 @@ from gndnet_tpu_torch import _ext
 from gndnet_tpu_torch.ops import affine, segment
 
 _MAX_W = 2048      # scan columns the kernel takes (prefix_segment.cu MAX_W)
+K8_CHANNELS = 64   # maxima a K8 block (K8_CHANNELS)
+_THREADS = 256     # threads a block (THREADS)
+K9_ROWS = 1024     # rows of a K9 tile (BC_ROWS)
+K9_GROUP = 8       # channels of a K9 block, a warp each (BC_WARPS)
+_EPOCHS = 1 << 30  # a flag holds epoch << 2 | status in 32 bits
+
+_sync_state: dict = {}   # device -> [ticket and flags (int32), last epoch]
+
+
+def k8_layout(n: int, width: int):
+    """K8's launch geometry for n rows of `width` = 4 + C scan columns:
+    (tile rows T, slice rows L, channel chunks, tiles, shared-memory bytes
+    a block).  T and L are `segment.scan_layout`'s, the order of the sums
+    that the plain version repeats; a block takes one tile and a chunk of
+    K8_CHANNELS maxima (chunk 0 also the 4 sums), a thread 4 channels of
+    one segment of the tile's rows."""
+    tile, slices, per = segment.scan_layout(width)
+    smem = 4 * (20 * tile + 8 * slices + 12 * _THREADS + 8 * K8_CHANNELS
+                + 2 * (4 + K8_CHANNELS)) + 4 * (tile // 32 + 1 + tile + 1)
+    return tile, per, -(-(width - 4) // K8_CHANNELS), -(-n // tile), smem
+
+
+def k9_layout(n: int, width: int):
+    """K9's launch geometry for a (width, n) table: (tile rows, channels a
+    block, channel groups, tiles); a block is one tile of one group, a
+    warp per channel."""
+    return K9_ROWS, K9_GROUP, -(-width // K9_GROUP), -(-n // K9_ROWS)
+
+
+def _sync(device, flags: int):
+    """The device's ticket and `flags` flags (int32; K8 and K9 share them)
+    and this call's epoch.  The kernel's last block puts the ticket back to
+    0 and each flag carries its call's epoch, so no call clears them: calls
+    on one device must be ordered on one stream.  Made anew, zeroed, when
+    too small or when the epochs run out."""
+    dev = torch.device(device)
+    state = _sync_state.get(dev)
+    if state is None or state[0].numel() < 1 + flags \
+            or state[1] + 1 >= _EPOCHS:
+        size = 1 + flags if state is None else max(1 + flags,
+                                                   state[0].numel())
+        state = _sync_state[dev] = [
+            torch.zeros(size, dtype=torch.int32, device=dev), 0]
+    state[1] += 1
+    return state[0], state[1]
 
 
 def _check_cell(cell: torch.Tensor, n: int, chunk: int) -> None:
@@ -53,12 +100,13 @@ def _check_broadcast(cell, vals_t, chunk):
 
 def _prefix_scan_plain(x: torch.Tensor, cell: torch.Tensor,
                        nsum: int) -> torch.Tensor:
-    """The kernel's three passes in PyTorch, in its order, so float32 sums
-    equal the kernel's to the bit: each L-row slice of each T-row tile
-    forwards; slice tails forwards, each run carried into the slice after
-    it and added on the left of that slice's first run; tile tails
-    forwards, likewise.  x (N, W) float32: columns < nsum are summed, the
-    rest maxed.  Returns the inclusive prefix of every row's run."""
+    """K8's order in PyTorch, so float32 sums equal the kernel's to the
+    bit: each L-row slice of each T-row tile forwards; slice tails
+    forwards, each run carried into the slice after it and added on the
+    left of that slice's first run; tile tails forwards, likewise (the
+    kernel's look-back folds the same tails from the left).  x (N, W)
+    float32: columns < nsum are summed, the rest maxed.  Returns the
+    inclusive prefix of every row's run."""
     n, width = x.shape
     dev = x.device
     is_sum = torch.arange(width, device=dev) < nsum
@@ -164,7 +212,9 @@ def affine_segment_scan(cell_sorted, pts8, mmat8, *,
         every row's complete prefix, which equals the JAX kernel at every
         row that contract defines, so it is accepted and not used.
     Returns (run_tot (N, 4) float32, run_max (N, C) out_dtype): the
-    inclusive prefix of each row's run.
+    inclusive prefix of each row's run.  One kernel launch for CUDA
+    tensors; calls on one device must be ordered on one stream (they share
+    a ticket and flags).
     """
     _check_scan8(cell_sorted, pts8, mmat8, out_dtype, chunk)
     if pts8.device.type == "cpu":
@@ -179,13 +229,15 @@ def affine_segment_scan(cell_sorted, pts8, mmat8, *,
     amax = torch.empty((n, width), dtype=out_dtype, device=pts8.device)
     if n == 0:
         return tot, amax
-    tile = segment.tile_rows(4 + width)
-    scratch = torch.empty((2, -(-n // tile), 4 + width), dtype=torch.float32,
+    tile, _, chunks, tiles, _ = k8_layout(n, 4 + width)
+    # each tile's aggregate and inclusive value (2, tiles, 4 + C)
+    scratch = torch.empty((2, tiles, 4 + width), dtype=torch.float32,
                           device=pts8.device)
+    sync, epoch = _sync(pts8.device, chunks * tiles)
     fn = _ext.function("affine_segment_scan")
     _ext.check(fn(cell_sorted.data_ptr(), pts8.data_ptr(), mmat8.data_ptr(),
-                  tot.data_ptr(), amax.data_ptr(), scratch[0].data_ptr(),
-                  scratch[1].data_ptr(), n, width, tile,
+                  tot.data_ptr(), amax.data_ptr(), scratch.data_ptr(),
+                  sync.data_ptr(), n, width, tile, epoch,
                   int(out_dtype == torch.bfloat16), _ext.stream_ptr(tot)),
                "affine_segment_scan")
     affine_segment_scan.launches += 1
@@ -219,7 +271,9 @@ def segment_broadcast_t(cell_sorted, vals_t, *, chunk: int = 2048):
     (N,) int32 `cell_sorted`, every row gets the max of its run from the
     run's start to itself; with the payload at each run's first row and a
     dominated value elsewhere, every row holds its run's payload.  `chunk`
-    only keeps the JAX entry's N % chunk rule."""
+    only keeps the JAX entry's N % chunk rule.  One kernel launch for CUDA
+    tensors (a warp per channel, lanes on consecutive rows); calls on one
+    device must be ordered on one stream."""
     _check_broadcast(cell_sorted, vals_t, chunk)
     if vals_t.device.type == "cpu":
         return segment_broadcast_t_plain(cell_sorted, vals_t, chunk=chunk)
@@ -229,13 +283,15 @@ def segment_broadcast_t(cell_sorted, vals_t, *, chunk: int = 2048):
     out = torch.empty_like(vals_t)
     if n == 0 or width == 0:
         return out
-    tile = segment.tile_rows(width)
-    scratch = torch.empty((2, -(-n // tile), width), dtype=torch.float32,
+    _, _, groups, tiles = k9_layout(n, width)
+    # each tile's aggregate and inclusive value (2, tiles, C)
+    scratch = torch.empty((2, tiles, width), dtype=torch.float32,
                           device=vals_t.device)
+    sync, epoch = _sync(vals_t.device, groups * tiles)
     fn = _ext.function("segment_broadcast_t")
     _ext.check(fn(cell_sorted.data_ptr(), vals_t.data_ptr(), out.data_ptr(),
-                  scratch[0].data_ptr(), scratch[1].data_ptr(), n, width,
-                  tile, _ext.stream_ptr(out)), "segment_broadcast_t")
+                  scratch.data_ptr(), sync.data_ptr(), n, width, epoch,
+                  _ext.stream_ptr(out)), "segment_broadcast_t")
     segment_broadcast_t.launches += 1
     return out
 

@@ -49,8 +49,9 @@ def tile_rows(width: int) -> int:
 
 
 def scan_layout(width: int):
-    """The kernel's (tile rows T, slices per tile S, slice rows L); K8 and
-    K9 (csrc/prefix_segment.cu) tile their prefix scans the same way."""
+    """The kernel's (tile rows T, slices per tile S, slice rows L); K8
+    (csrc/prefix_segment.cu, `affine_aux.k8_layout`) tiles its prefix scan
+    the same way, forwards."""
     tile = tile_rows(width)
     per = -(-tile // max(1, min(_THREADS // width, tile)))
     return tile, -(-tile // per), per

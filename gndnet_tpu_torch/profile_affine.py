@@ -26,6 +26,13 @@ on their argmax rows (`dmmat_B2_bf16`, `dmmat_B2_f32`), and K3 has
 `*_empty20k`, `*_u10x20k` and `*_one5000*` cases run K4, K5 and K6 on
 20 000 cells that are all empty, that hold 10 rows each, or of which one
 holds 5 000 rows: what each costs apart from the data's run lengths.
+K8 and K9 also run on one cell throughout (`*_onecell`: every tile
+carries a run from the tiles before it), and K9 on the payload table
+`probe_train.py` broadcasts (`bcast_128x1.6M_payload`: each run's value
+at its first row, -3e38 elsewhere); `bcast_128x1.6M_copy` copies the
+table (`clone`), the bytes K9 must move, as the card's practical rate for
+them.  Each line also splits the device time by kernel name
+(`device_kernels`, ms a call).
 Needs a CUDA device; fails without one.
 """
 
@@ -47,8 +54,10 @@ from gndnet_tpu_torch.synthetic import synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
 BCAST_SHAPE = (128, 16 * 100_352)   # probe_train.py's (C, B * Np) table
-K8_CASES = ("kernel_only_102k_f32", "kernel_only_102k_bf16")
-K9_CASES = ("bcast_128x1.6M",)
+K8_CASES = ("kernel_only_102k_f32", "kernel_only_102k_bf16",
+            "kernel_only_102k_f32_onecell", "kernel_only_102k_bf16_onecell")
+K9_CASES = ("bcast_128x1.6M", "bcast_128x1.6M_onecell",
+            "bcast_128x1.6M_payload", "bcast_128x1.6M_copy")
 K10_CASES = ("affine_canvas_fine_grid", "sort2_idx_gather_102k")
 
 
@@ -101,6 +110,8 @@ class Setup:
         self.fine_pts = self.fine.device_points(self.fine_padded)
         self.bcast_shape = bcast_shape
         self._bcast = None
+        self._payload = None
+        self._one = None
         self._argmax = None
         self._dmmat = {}
         self._variants = {}
@@ -120,6 +131,7 @@ class Setup:
         self.pts8 = torch.from_numpy(pts8).to(dev)
         self.mmat8 = torch.from_numpy((np.random.default_rng(4).normal(
             size=(8, 64)) * 0.3).astype(np.float32)).to(dev)
+        self.cell_one = torch.zeros_like(self.cell_k)
         counts = affine.histogram_counts_plain(self.cell_k[None],
                                                self.cfg.ny, self.cfg.nx)
         self.counts_k = counts.reshape(-1)
@@ -137,6 +149,23 @@ class Setup:
             vals = torch.randn(c, n, generator=gen, device=self.device)
             self._bcast = (torch.from_numpy(cell).to(self.device), vals)
         return self._bcast
+
+    def broadcast_payload(self):
+        """`broadcast_inputs()` with each run's value at its first row and
+        -3e38 (dominated) elsewhere, as probe_train.py broadcasts a
+        per-cell payload; made on first use."""
+        if self._payload is None:
+            cell, vals = self.broadcast_inputs()
+            starts = torch.ones_like(cell, dtype=torch.bool)
+            starts[1:] = cell[1:] != cell[:-1]
+            self._payload = torch.where(starts, vals, -3.0e38)
+        return self._payload
+
+    def broadcast_one_cell(self):
+        """Cell ids of `broadcast_inputs()`'s length, all one cell."""
+        if self._one is None:
+            self._one = torch.zeros_like(self.broadcast_inputs()[0])
+        return self._one
 
     def argmax_inputs(self):
         """K4/K5's inputs at kitti_sem's B=2 training shapes (20 000
@@ -322,6 +351,11 @@ def cases(s: Setup) -> dict:
         "kernel_only_102k_bf16": lambda: affine_aux.affine_segment_scan(
             s.cell_k, s.pts8, s.mmat8, out_dtype=torch.bfloat16,
             chunk=1024),
+        **{f"kernel_only_102k_{name}_onecell": (
+            lambda dtype=dtype: affine_aux.affine_segment_scan(
+                s.cell_one, s.pts8, s.mmat8, out_dtype=dtype, chunk=1024))
+           for name, dtype in (("f32", torch.float32),
+                               ("bf16", torch.bfloat16))},
         "kernel_t_102k": lambda: affine.affine_scan_gather(
             pts4, s.starts_k, s.counts_k, mmat4, 100, torch.bfloat16),
         "kernel_t_102k_nocap": lambda: affine.affine_scan_gather(
@@ -339,6 +373,11 @@ def cases(s: Setup) -> dict:
         "infer_many_K16": lambda: s.engine.infer_many(s.scans),
         "bcast_128x1.6M": lambda: affine_aux.segment_broadcast_t(
             *s.broadcast_inputs(), chunk=2048),
+        "bcast_128x1.6M_onecell": lambda: affine_aux.segment_broadcast_t(
+            s.broadcast_one_cell(), s.broadcast_inputs()[1], chunk=2048),
+        "bcast_128x1.6M_payload": lambda: affine_aux.segment_broadcast_t(
+            s.broadcast_inputs()[0], s.broadcast_payload(), chunk=2048),
+        "bcast_128x1.6M_copy": lambda: s.broadcast_inputs()[1].clone(),
     }
 
 
@@ -358,6 +397,9 @@ def run(only=(), reps: int = 20, setup: Setup | None = None) -> list:
                 "device_ms": device.get("device_ms_per_call", "not measured"),
                 "device_ops": device.get("device_ops_per_call",
                                          "not measured"),
+                "device_kernels": {
+                    k["kernel"]: k["ms_per_call"]
+                    for k in device.get("top", [])[:6]},
                 "reps": reps, "card": smi}
         if name == "infer_many_K16":
             line["ms_per_scan"] = ms / len(setup.scans)

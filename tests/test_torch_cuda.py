@@ -643,32 +643,58 @@ def _k8_stream(dev, n, width, seed):
     return tuple(torch.from_numpy(x).to(dev) for x in (cell, pts8, mmat8))
 
 
+def _device_ops(fn) -> float:
+    """Device operations one call of fn() enqueues, by torch.profiler over
+    20 calls; again when a window's device records were dropped (as
+    test_dmmat_kernel)."""
+    from gndnet_tpu_torch.profile_serve import kernel_times
+    fn()
+    for _ in range(3):
+        prof = kernel_times(fn, 20)
+        if "device_ops_per_call" in prof:
+            break
+    return prof["device_ops_per_call"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("max_prefix", [None, 7])
 @pytest.mark.parametrize("n,width", [(1024, 16), (20_480, 64),
                                      (70_144, 64)])
 def test_affine_segment_scan_kernel(dev, dtype, max_prefix, n, width):
     """K8 against its plain version, which sums in the kernel's order:
-    sums, counts and maxima equal to the bit, and the same bits on a
-    second run."""
+    sums, counts and maxima equal to the bit, on the stream, on one cell
+    throughout (every tile carried by the look-back) and with rows masked
+    at random (a prefix can be the mask value, rounded in bf16); the same
+    bits in 20 calls; one device operation a call."""
     cell, pts8, mmat8 = _k8_stream(dev, n, width, n + width)
-    before = affine_aux.affine_segment_scan.launches
-    got = affine_aux.affine_segment_scan(cell, pts8, mmat8, out_dtype=dtype,
-                                         chunk=128, max_prefix=max_prefix)
-    again = affine_aux.affine_segment_scan(cell, pts8, mmat8,
-                                           out_dtype=dtype, chunk=128)
-    assert affine_aux.affine_segment_scan.launches == before + 2
-    want = affine_aux.affine_segment_scan_plain(cell, pts8, mmat8,
+    masked = pts8.clone()
+    masked[torch.from_numpy(np.random.default_rng(n).random(n) < 0.1).to(
+        dev), 3] = 0.0
+    for c, p in ((cell, pts8), (torch.zeros_like(cell), pts8),
+                 (cell, masked)):
+        before = affine_aux.affine_segment_scan.launches
+        got = affine_aux.affine_segment_scan(c, p, mmat8, out_dtype=dtype,
+                                             chunk=128, max_prefix=max_prefix)
+        again = [affine_aux.affine_segment_scan(c, p, mmat8,
                                                 out_dtype=dtype, chunk=128)
-    for g, a, w in zip(got, again, want):
-        assert g.dtype == w.dtype
-        assert torch.equal(g, a) and torch.equal(g, w)
+                 for _ in range(19)]
+        assert affine_aux.affine_segment_scan.launches == before + 20
+        want = affine_aux.affine_segment_scan_plain(c, p, mmat8,
+                                                    out_dtype=dtype,
+                                                    chunk=128)
+        for k, w in enumerate(want):
+            assert got[k].dtype == w.dtype and torch.equal(got[k], w)
+            assert all(torch.equal(got[k], a[k]) for a in again)
+    assert round(_device_ops(lambda: affine_aux.affine_segment_scan(
+        cell, pts8, mmat8, out_dtype=dtype, chunk=128))) == 1
 
 
 @pytest.mark.parametrize("n,width", [(128, 6), (70_144, 128)])
 def test_segment_broadcast_kernel(dev, n, width):
-    """K9 against its plain version: equal to the bit (max is exact);
-    payload-at-start streams broadcast each run's payload."""
+    """K9 against its plain version: equal to the bit (max is exact) on the
+    stream and on one cell throughout; payload-at-start streams broadcast
+    each run's payload; the same bits in 20 calls; one device operation a
+    call."""
     rng = np.random.default_rng(n)
     cell = np.sort(rng.integers(0, n // 40 + 1, n))
     cell[n // 3:] = cell[-1]
@@ -679,13 +705,20 @@ def test_segment_broadcast_kernel(dev, n, width):
     starts[1:] = cell[1:] != cell[:-1]
     payload = torch.where(starts, vals, -3.0e38)
     before = affine_aux.segment_broadcast_t.launches
-    for v in (vals, payload):
-        got = affine_aux.segment_broadcast_t(cell, v, chunk=128)
+    for c, v in ((cell, vals), (cell, payload), (torch.zeros_like(cell),
+                                                 vals)):
+        got = affine_aux.segment_broadcast_t(c, v, chunk=128)
         assert torch.equal(got, affine_aux.segment_broadcast_t_plain(
-            cell, v, chunk=128))
-    assert affine_aux.segment_broadcast_t.launches == before + 2
+            c, v, chunk=128))
+        assert all(torch.equal(got, affine_aux.segment_broadcast_t(
+            c, v, chunk=128)) for _ in range(19))
+    assert affine_aux.segment_broadcast_t.launches == before + 60
     first = torch.searchsorted(cell, cell)
-    assert torch.equal(got, payload[:, first])
+    assert torch.equal(affine_aux.segment_broadcast_t(cell, payload,
+                                                      chunk=128),
+                       payload[:, first])
+    assert round(_device_ops(lambda: affine_aux.segment_broadcast_t(
+        cell, vals, chunk=128))) == 1
 
 
 def _fine_engine(dtype="float32", precision="highest"):

@@ -111,6 +111,106 @@ def test_affine_segment_scan_is_a_complete_prefix():
         np.testing.assert_array_equal(amax[i].numpy(), run_max)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_affine_segment_scan_long_run_matches_pallas(dtype):
+    """A 4 096-row stream that is one run for 3 000 rows: 12 of the port's
+    256-row tiles carry it (the kernel's look-back chain) and 24 of the
+    JAX kernel's 128-row chunks; maxima and counts exact at width 64, sums
+    within 1e-5 of their scale (another f32 summation order)."""
+    rng = np.random.default_rng(11)
+    n, width = 4096, EXACT_WIDTH
+    cell = np.sort(rng.integers(0, 80, n)).astype(np.int32)
+    cell[600:3600] = cell[600]
+    cell = np.sort(cell)
+    assert np.bincount(cell).max() >= 3000
+    pts8 = np.zeros((n, 8), np.float32)
+    pts8[:, :3] = rng.normal(size=(n, 3)) * 5
+    pts8[:, 3] = rng.random(n) < 0.9
+    pts8[:, 4] = rng.uniform(size=n)
+    mmat8 = (rng.normal(size=(8, width)) * 0.3).astype(np.float32)
+    mmat8[3] = 0
+    want_tot, want_max = jax_scan(
+        jnp.asarray(cell), jnp.asarray(pts8), jnp.asarray(mmat8),
+        out_dtype=jnp.dtype(dtype), chunk=128, interpret=True)
+    got_tot, got_max = affine_aux.affine_segment_scan(
+        torch.from_numpy(cell), torch.from_numpy(pts8),
+        torch.from_numpy(mmat8), out_dtype=getattr(torch, dtype), chunk=128)
+    np.testing.assert_array_equal(got_max.float().numpy(),
+                                  np.asarray(want_max.astype(jnp.float32)))
+    want_tot = np.asarray(want_tot)
+    np.testing.assert_array_equal(got_tot[:, 3].numpy(), want_tot[:, 3])
+    scale = np.abs(want_tot[:, :3]).max()
+    np.testing.assert_allclose(got_tot[:, :3].numpy(), want_tot[:, :3],
+                               rtol=0, atol=1e-5 * scale)
+
+
+LAYOUT_ROWS = [1, 2, 255, 256, 257, 1023, 1024, 1025, 102_400, 1_605_632]
+
+
+@pytest.mark.parametrize("channels", [1, 6, 68, 128, 2048])
+def test_k8_layout(channels):
+    """K8's launch geometry: the tiles and slices of `segment.scan_layout`
+    (the order the plain version repeats), the 4 x S sum items on one warp
+    and the (segment, 4-channel) items on the block's other 7 warps, every
+    row and channel covered, shared memory within the 227 KB a block may
+    have; 2048 channels are refused (4 + C scan columns at most 2048)."""
+    width = 4 + channels
+    if width > 2048:
+        n = 256
+        args = (torch.zeros(n, dtype=torch.int32), torch.zeros((n, 8)),
+                torch.zeros((8, channels)))
+        with pytest.raises(ValueError, match="channels"):
+            affine_aux.affine_segment_scan(*args, chunk=1)
+        return
+    for n in LAYOUT_ROWS:
+        tile, per, chunks, tiles, smem = affine_aux.k8_layout(n, width)
+        assert (tile, per) == affine_aux.segment.scan_layout(width)[::2]
+        slices = -(-tile // per)
+        assert slices * per >= tile and 4 * slices <= 256
+        assert chunks * affine_aux.K8_CHANNELS >= channels
+        assert (chunks - 1) * affine_aux.K8_CHANNELS < channels
+        assert tiles * tile >= n and (tiles - 1) * tile < n
+        quads = -(-min(channels, affine_aux.K8_CHANNELS) // 4)
+        segments = 224 // quads
+        assert quads * segments <= 224
+        assert segments * -(-tile // segments) >= tile
+        assert smem <= 227 * 1024
+        assert chunks * tiles < 2**31
+
+
+@pytest.mark.parametrize("channels", [1, 6, 68, 128, 2048])
+def test_k9_layout(channels):
+    """K9's launch geometry: tiles of whole 128-row warp steps covering
+    every row, channel groups of one warp each covering every channel, a
+    grid the card can launch."""
+    for n in LAYOUT_ROWS:
+        rows, group, groups, tiles = affine_aux.k9_layout(n, channels)
+        assert rows % 128 == 0 and group * 32 <= 1024
+        assert tiles * rows >= n and (tiles - 1) * rows < n
+        assert groups * group >= channels
+        assert (groups - 1) * group < channels
+        assert groups * tiles < 2**31
+
+
+def test_k8_k9_sync_state(monkeypatch):
+    """The ticket and flags K8 and K9 share on a device: made zeroed, grown
+    when a call needs more flags, and each call a new epoch; made anew,
+    zeroed, when the epochs run out (a flag holds epoch << 2 | status in
+    32 bits)."""
+    monkeypatch.setattr(affine_aux, "_sync_state", {})
+    sync, epoch = affine_aux._sync("cpu", 10)
+    assert sync.dtype == torch.int32 and sync.numel() >= 11
+    assert not sync.any() and epoch == 1
+    again, epoch2 = affine_aux._sync("cpu", 4)
+    assert again is sync and epoch2 == 2
+    grown, epoch3 = affine_aux._sync("cpu", 100)
+    assert grown.numel() >= 101 and not grown.any() and epoch3 >= 1
+    monkeypatch.setattr(affine_aux, "_EPOCHS", epoch3 + 2)
+    affine_aux._sync("cpu", 4)
+    fresh, epoch5 = affine_aux._sync("cpu", 4)
+    assert epoch5 == 1 and fresh is not grown and not fresh.any()
+
+
 def _k9_inputs(seed, payload_only):
     """tests/test_pillarize.py's broadcast stream: 9 runs of 1-300 rows
     padded to a multiple of 128 with id 99, 6 channels; the payload at run
@@ -155,3 +255,14 @@ def test_legacy_kernels_keep_the_jax_checks():
     with pytest.raises(ValueError, match="divisible"):
         affine_aux.segment_broadcast_t(torch.from_numpy(cell),
                                        torch.from_numpy(vals_t), chunk=1000)
+
+
+def test_trace_prefix_marks_every_phase():
+    """The K8 phase trace (`python -m gndnet_tpu_torch.trace_prefix`) finds
+    each place it stamps in csrc/prefix_segment.cu, so an edit of the
+    kernel that moves one fails here and not on the card."""
+    from gndnet_tpu_torch import trace_prefix
+    src = trace_prefix.instrumented_source()
+    for k in range(7):
+        assert src.count(f"STAMP({k})") == 1
+    assert 'extern "C" int set_trace' in src
