@@ -66,7 +66,23 @@ Phases, each printing one JSON line:
      each elevation within SERVE_MANY_ELEV_ATOL of per-scan `infer`;
  18. profile_affine: the stage profile's K8, K10 and K9 cases, the
      launches that the kernels line reports for K8 and K9;
- 19. the kernels line, the card line, then the result line.
+ 19. serve_aot: the warm start.  `aot_save` then `aot_load` in a fresh
+     engine, which captures one CUDA graph of `run` for the padded
+     kitti_sem shape, for 'affine' (bf16) and 'sorted' (graph outputs
+     bit-equal to the eager engine's `run` over 20 scans) and 'scatter' as
+     shipped (within IMPL_ELEV_ATOL: atomics); no wrapper counts a
+     replay, torch.profiler's device records of a replay show K1, K3 and
+     K2 once ('affine') or K7 three times ('sorted') and no other kernel
+     of K1-K10, a scan of another bucket runs eagerly (K1-K3 counted);
+     host-clock scans/s eager against graph, device ms a scan, busy share;
+ 20. pipelined: `infer_pipelined(depth=3)` of 32 scans on the graph
+     engine, bit-equal to `infer`; scans/s against sequential `infer`;
+ 21. streaming: `StreamingEngine` on the graph engine with the native
+     mailbox (required), 16 distinct scans fed forward (no errors, the last
+     result `infer`'s of the last scan), `replay_device` free-wheeling (no
+     drops) and at 55 Hz, and `replay` of the 16 scans: sustained Hz, drop
+     share, latency p50 / p99;
+ 22. the kernels line, the card line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -74,22 +90,25 @@ is printed.  Without a CUDA device the script exits with code 2.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from gndnet_tpu_torch import _ext, profile_affine, train
+from gndnet_tpu_torch import _ext, native, profile_affine, train
 from gndnet_tpu_torch.config import (camera_config, custom_local_config,
                                      fine_grid_config, kitti_sem_config)
-from gndnet_tpu_torch.infer import GroundInferenceEngine
+from gndnet_tpu_torch.infer import GroundInferenceEngine, StreamingEngine
 from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import _cell_indices
 from gndnet_tpu_torch.profile_affine import serving_config, time_ms
 from gndnet_tpu_torch.profile_serve import kernel_times
+from gndnet_tpu_torch.serving.replay import replay, replay_device
 from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -564,6 +583,8 @@ COUNTERS = (sort.sort_i32, affine.cell_histogram,
             segment.suffix_segment_reduce, affine_aux.affine_segment_scan,
             affine_aux.segment_broadcast_t, sort.sort2_i32)
 K1, K3, K2, K4, K5, K6, K7, K8, K9, K10 = COUNTERS
+KW = dict(zip(("K1", "K3", "K2", "K4", "K5", "K6", "K7", "K8", "K9", "K10"),
+              COUNTERS))
 # the shipped configurations the later phases drive as they are written
 SHIPPED = {"kitti_sem": kitti_sem_config, "fine_grid": fine_grid_config,
            "camera": camera_config, "custom_local": custom_local_config}
@@ -1321,6 +1342,253 @@ def presets(rng, device) -> dict:
     return out
 
 
+# the device kernels of K1-K10 as torch.profiler names them (demangled)
+KERNEL_NAMES = {
+    "K1": r"radix_kernel<[^>]*I32>|tile_kernel\(int\*|global_stage\(int\*",
+    "K2": r"scan_cells<\w+, \d+, 0>",
+    "K3": r"hist_cluster|hist_global|ends_global",
+    "K4": r"scan_cells<\w+, \d+, 2>",
+    "K5": r"scan_cells<\w+, \d+, 1>",
+    "K6": r"\bdmmat\b",
+    "K7": r"suffix_scan",
+    "K8": r"k8_scan",
+    "K9": r"k9_broadcast",
+    "K10": r"radix_kernel<[^>]*Pair>|tile_kernel\(int const\*"
+           r"|global_stage\(long long\*",
+}
+AOT_SCANS = 20
+PIPELINE_SCANS = 32
+STREAM_SCANS = 16
+STREAM_TIMEOUT_S = 60.0
+
+
+def device_kernels(fn, reps: int = 20) -> dict:
+    """Device operations one call of fn() runs, by name, per call
+    (torch.profiler over `reps` warm calls; again, up to 3 windows, when
+    a window recorded no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = {evt.key: evt.count / reps for evt in prof.key_averages()
+                 if evt.device_type.name == "CUDA"
+                 and (getattr(evt, "self_device_time_total", 0) or 0) > 0}
+        if names:
+            return names
+    require(False, "the profiler saw no kernel in 3 windows")
+
+
+def k_counts(names: dict) -> dict:
+    """Launches a call of each of K1-K10, rounded: the profiler drops a
+    device record now and then (232.6 of a replay's 233 operations a call
+    over 5 calls, seen on an H100 80GB HBM3 at 700 W)."""
+    return {k: round(sum(c for name, c in names.items()
+                         if re.search(pat, name)))
+            for k, pat in KERNEL_NAMES.items()}
+
+
+def host_seconds(fn, items) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for item in items:
+        fn(item)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def graph_case(name, cfg, sd, scans, other, n_points, device, want,
+               tmp) -> tuple:
+    """aot_save, aot_load into a fresh engine (one CUDA graph of `run`),
+    the graph against the eager engine's `run` on the same padded input,
+    the kernels of a replay, an eagerly served scan of another bucket, and
+    the host-clock and device times of both engines.  Returns (result,
+    graph engine, launches of the eager bucket)."""
+    path = f"{tmp}/{name}.aot"
+    eager = GroundInferenceEngine(cfg, sd, device=device)
+    size = eager.aot_save(path, n=n_points)
+    eager.warmup()
+    served = GroundInferenceEngine(cfg, sd, device=device)
+    t0 = time.perf_counter()
+    served.aot_load(path)
+    capture_s = time.perf_counter() - t0
+    shape, graph = served._graph
+    require(graph is not None, f"{name}: aot_load captured no graph")
+    padded = [torch.from_numpy(eager._prepare(s)[0]).to(device)
+              for s in scans]
+    require(all(tuple(p.shape) == shape for p in padded),
+            f"{name}: scans outside the recorded bucket {shape}")
+    reset_launches()
+    worst_elev, mismatch = 0.0, 0
+    for p in padded:
+        e_eager, l_eager = eager.run(p)
+        replays = graph.replays
+        e_graph, l_graph = served._dispatch(p)
+        require(graph.replays == replays + 1, f"{name}: not replayed")
+        if name == "scatter":
+            worst_elev = max(worst_elev,
+                             float((e_graph - e_eager).abs().max()))
+            diff = (l_graph != l_eager).nonzero()[:, 0]
+            mismatch += int(diff.numel())
+            if diff.numel():
+                pts = eager.device_points(p)[diff]
+                ix, iy = _cell_indices(pts, cfg.grid_range,
+                                       cfg.voxel_size[0])
+                margin = (pts[:, 2] - eager.threshold - e_eager.t()[
+                    ix.clamp(0, cfg.nx - 1).long(),
+                    iy.clamp(0, cfg.ny - 1).long()]).abs()
+                require(bool((margin <= IMPL_ELEV_ATOL).all()),
+                        "scatter: graph labels differ away from the "
+                        "threshold")
+        else:
+            require(torch.equal(e_graph, e_eager)
+                    and torch.equal(l_graph, l_eager),
+                    f"{name}: graph replay differs from eager run")
+    torch.cuda.synchronize()
+    eager_counts = {fn.__name__: fn.launches for fn in COUNTERS}
+    reset_launches()
+    for p in padded:
+        served._dispatch(p)
+    read_launches((), f"serve_aot_{name}_graph")
+    if name == "scatter":
+        require(worst_elev <= IMPL_ELEV_ATOL,
+                f"scatter: graph vs eager elevation {worst_elev}")
+    names = device_kernels(lambda: served._dispatch(padded[0]))
+    ks = k_counts(names)
+    for k, count in ks.items():
+        require(count == want.get(k, 0),
+                f"{name}: {k} ran {count} times a replay, not "
+                f"{want.get(k, 0)}")
+    reset_launches()
+    e_other, l_other = served.infer(other)
+    launched = read_launches(tuple(KW[k] for k in want),
+                             f"serve_aot_{name}_other_bucket")
+    for k, count in want.items():
+        require(KW[k].launches == count,
+                f"{name}: another bucket launched {k} {KW[k].launches} "
+                f"times, not {count}")
+    require(np.isfinite(e_other).all() and l_other.shape == (len(other),),
+            f"{name}: another bucket's result")
+    # host clock, both engines warm (their pinned slots allocated):
+    # eager, graph, graph, eager over the same scans
+    for engine in (eager, served):
+        host_seconds(engine.infer, scans[:4])
+    secs = [host_seconds(engine.infer, scans)
+            for engine in (eager, served, served, eager)]
+    it = iter(scans * 2)
+    prof_eager = kernel_times(lambda: eager.infer(next(it)), 10)
+    it = iter(scans * 2)
+    prof_graph = kernel_times(lambda: served.infer(next(it)), 10)
+    return {
+        "fused_impl": cfg.fused_impl, "compute_dtype": cfg.compute_dtype,
+        "artifact_bytes": size, "padded_shape": list(shape),
+        "capture_s": capture_s, "scans": len(scans),
+        "bit_equal": name != "scatter",
+        "elevation_vs_eager": worst_elev, "label_mismatch": mismatch,
+        "eager_run_launches": eager_counts,
+        "replay_kernels": ks, "replay_device_ops": sum(names.values()),
+        "scans_per_s": {"eager": [len(scans) / secs[0], len(scans) / secs[3]],
+                        "graph": [len(scans) / secs[1], len(scans) / secs[2]]},
+        "infer_ms": {"eager": [1e3 * secs[0] / len(scans),
+                               1e3 * secs[3] / len(scans)],
+                     "graph": [1e3 * secs[1] / len(scans),
+                               1e3 * secs[2] / len(scans)]},
+        "device_ms_per_scan": {
+            "eager": prof_eager.get("device_ms_per_call"),
+            "graph": prof_graph.get("device_ms_per_call")},
+        "busy_share": {"eager": prof_eager.get("device_busy_share"),
+                       "graph": prof_graph.get("device_busy_share")},
+        "device_ops_per_scan": {
+            "eager": prof_eager.get("device_ops_per_call"),
+            "graph": prof_graph.get("device_ops_per_call")},
+    }, served, launched
+
+
+def serve_aot(cfg, sd, rng, n_points, device) -> dict:
+    """Phase 19: the warm start for 'affine', 'sorted' and 'scatter'."""
+    scans = [synthetic_scan(cfg, rng, n_points) for _ in range(AOT_SCANS)]
+    other = synthetic_scan(cfg, rng, n_points + 2 * 4096)
+    shipped = SHIPPED["kitti_sem"]()
+    cases = (("affine", cfg, sd, {"K1": 1, "K3": 1, "K2": 1}),
+             ("sorted", cfg.replace(fused_impl="sorted"), sd, {"K7": 3}),
+             ("scatter", shipped, init_state_dict(shipped, seed=SEED), {}))
+    out = {"phase": "serve_aot", "elevation_atol_scatter": IMPL_ELEV_ATOL}
+    paths, engines = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, c, weights, want in cases:
+            out[name], engines[name], launched = graph_case(
+                name, c, weights, scans, other, n_points, device, want, tmp)
+            paths[f"serve_aot_{name}_other_bucket"] = launched
+    return {"launches": paths, "result": out, "engine": engines["affine"],
+            "scans": scans}
+
+
+def pipelined(engine, scans, rng, n_points) -> dict:
+    """Phase 20: infer_pipelined(depth=3) on the graph engine."""
+    scans = scans + [synthetic_scan(engine.cfg, rng, n_points)
+                     for _ in range(PIPELINE_SCANS - len(scans))]
+    want = [engine.infer(s) for s in scans]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(engine.infer_pipelined(scans, depth=3))
+    piped = time.perf_counter() - t0
+    require(len(got) == len(scans)
+            and all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(got, want)),
+            "infer_pipelined differs from infer")
+    sequential = host_seconds(engine.infer, scans)
+    return {"phase": "pipelined", "scans": len(scans), "depth": 3,
+            "bit_equal_to_infer": True,
+            "scans_per_s": len(scans) / piped,
+            "sequential_scans_per_s": len(scans) / sequential}
+
+
+def streaming(engine, rng, n_points) -> dict:
+    """Phase 21: StreamingEngine with the native mailbox, replay_device
+    and replay on the graph engine."""
+    require(native.available(), "the native host library did not build")
+    scans = [synthetic_scan(engine.cfg, rng, n_points)
+             for _ in range(STREAM_SCANS)]
+    srv = StreamingEngine(engine, warmup=True,
+                          use_native_mailbox=True).start()
+    try:
+        require(srv.native_mailbox, "StreamingEngine took the lock path")
+        for scan in scans:
+            seq = srv.submit(scan)
+            deadline = time.perf_counter() + STREAM_TIMEOUT_S
+            while (srv.latest() is None or srv.latest()[0] < seq) \
+                    and srv.errors == 0 and time.perf_counter() < deadline:
+                time.sleep(0.0002)
+            require(srv.errors == 0, f"streaming errors: {srv.last_error}")
+            require(srv.latest()[0] == seq, f"no result for scan {seq}")
+        _, elev, labels = srv.latest()
+        e1, l1 = engine.infer(scans[-1])
+        require(np.array_equal(elev, e1) and np.array_equal(labels, l1),
+                "the last streamed result is not infer of the last scan")
+        processed = srv.processed
+    finally:
+        srv.stop()
+    free = replay_device(engine, scans[0], target_hz=0.0)
+    require(free.drop_fraction == 0.0
+            and free.scans_processed == free.scans_submitted,
+            f"free-wheeling replay_device dropped {free.drop_fraction}")
+    paced = replay_device(engine, scans[0])
+    fed = replay(engine, scans)
+    require(fed.scans_processed == fed.scans_submitted == len(scans),
+            "replay lost scans")
+    return {"phase": "streaming", "native_mailbox": True,
+            "fed_forward": {"scans": len(scans), "processed": processed,
+                            "errors": 0, "last_equals_infer": True},
+            "replay_device_free": free.as_dict(),
+            "replay_device_55hz": paced.as_dict(),
+            "replay": fed.as_dict()}
+
+
 REPLACES = {
     "cluster_radix_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
                                "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
@@ -1384,7 +1652,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-18 on `device`; returns the kernels line's entries."""
+    """Phases 3-21 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -1481,6 +1749,11 @@ def run(cfg, n_points: int, device) -> list:
     profiled = profile_phase(setup)
     paths["profile_affine"] = profiled["launches"]
     emit(profiled["result"])
+    aot = serve_aot(cfg, sd, rng, n_points, device)
+    paths.update(aot["launches"])
+    emit(aot["result"])
+    emit(pipelined(aot["engine"], aot["scans"], rng, n_points))
+    emit(streaming(aot["engine"], rng, n_points))
 
     kernels = []
     for row in rows:

@@ -80,10 +80,15 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def source_digest(name: str) -> str:
+    """The hash of `csrc/<name>.cu` and the flags, which names its library."""
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
 
 
 def _start_build(name: str):
@@ -109,7 +114,7 @@ def _finish_build(name: str, proc, tmp: str, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _sources() -> list[str]:
+def sources() -> list[str]:
     return sorted({lib for lib, _ in SIGNATURES.values()})
 
 
@@ -118,7 +123,7 @@ def build_all() -> float:
     per source, all started together.  Returns the wall seconds taken."""
     t0 = time.perf_counter()
     with _lock:
-        started = [(name, *_start_build(name)) for name in _sources()]
+        started = [(name, *_start_build(name)) for name in sources()]
         try:
             for name, proc, tmp, path in started:
                 _finish_build(name, proc, tmp, path)

@@ -7,7 +7,8 @@ parameter names), `epoch` and `lowest_loss`, so
 `gndnet_tpu.checkpoint.load_torch_checkpoint` reads it, plus `optimizer`
 (the SGD momentum buffers and the step count that sets the schedule), so
 a resumed run continues where it stopped.  Counterpart of the JAX package's
-orbax `CheckpointManager` for single-device runs.
+orbax `CheckpointManager` for single-device runs.  `load_torch_checkpoint`
+reads such a file, or the reference's own, for serving.
 """
 
 from __future__ import annotations
@@ -44,6 +45,24 @@ def save_checkpoint(directory: str, state, epoch: int, lowest_loss: float,
 def latest_checkpoint(directory: str) -> str | None:
     path = os.path.join(directory, CHECKPOINT)
     return path if os.path.exists(path) else None
+
+
+def load_torch_checkpoint(path: str, cfg=None) -> dict:
+    """Read a reference `.pth.tar` (a dict with a `state_dict` key, or a
+    bare state dict) for serving.
+
+    Returns {'state_dict', 'epoch', 'lowest_loss'}, the reference's saved
+    dict (training.py:300-305).  The port's modules use the reference's
+    parameter names, so `load_state_dict` (or `GroundInferenceEngine`)
+    takes the state dict unchanged; `cfg` is accepted for the JAX loader's
+    signature and not needed."""
+    del cfg
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    return {"state_dict": {k: torch.as_tensor(v)
+                           for k, v in state_dict.items()},
+            "epoch": ckpt.get("epoch", 0),
+            "lowest_loss": ckpt.get("lowest_loss", float("inf"))}
 
 
 def restore_checkpoint(path: str, state) -> dict:

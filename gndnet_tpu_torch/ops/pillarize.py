@@ -209,9 +209,10 @@ def masked_activations(acts: torch.Tensor,
                        kept: torch.Tensor) -> torch.Tensor:
     """The max's input: the activations of kept rows, the dtype's lowest
     value elsewhere."""
-    neg = torch.tensor(torch.finfo(acts.dtype).min, dtype=acts.dtype,
-                       device=acts.device)
-    return torch.where(kept[:, None], acts, neg).contiguous()
+    # a Python scalar, not a device tensor made from host data: no copy, so
+    # the serving graph can capture it
+    return torch.where(kept[:, None], acts,
+                       torch.finfo(acts.dtype).min).contiguous()
 
 
 def canvas_from_activations(point_feats: torch.Tensor, ctx: PointContext,

@@ -7,6 +7,8 @@ shapes.  Every test needs a CUDA device and skips without one; on the card:
 not have.)
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -784,3 +786,59 @@ def test_infer_many_matches_infer(dev, grid):
     for (eb, lb), (e1, l1) in zip(many, ones):
         np.testing.assert_allclose(eb, e1, rtol=0, atol=1e-2)
         assert lb.shape == l1.shape and lb.dtype == np.int8
+
+
+@pytest.mark.parametrize("impl", ["affine", "sorted"])
+def test_aot_graph_replays_match_eager(dev, impl, tmp_path):
+    """aot_load captures one CUDA graph of `run` for the artifact's bucket
+    shape: replays of it (no wrapper counts them) give the eager `run`'s
+    bits, `infer` / `infer_pipelined` / `StreamingEngine` serve through it,
+    and a scan of another bucket runs eagerly (its kernels counted)."""
+    from gndnet_tpu_torch.infer import StreamingEngine
+
+    cfg = GndNetConfig(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
+                       grid_range=(0.0, -8.0, 16.0, 8.0),
+                       max_points_voxel=20, lidar_height=1.7,
+                       fused_impl=impl, compute_dtype="bfloat16",
+                       matmul_precision="default")
+    sd = init_state_dict(cfg, seed=0)
+    eager = GroundInferenceEngine(cfg, sd, bucket=1024)
+    path = str(tmp_path / "engine.aot")
+    assert eager.aot_save(path, n=3000) > 0
+    served = GroundInferenceEngine(cfg, sd, bucket=1024)
+    served.aot_load(path)
+    shape, graph = served._graph
+    assert shape == (3072, 4) and graph is not None
+    rng = np.random.default_rng(2)
+    scans = [synthetic_scan(cfg, rng, n) for n in (3000, 2500, 3072)]
+    counter, per_scan = ((sort.sort_i32, 1) if impl == "affine"
+                         else (segment.suffix_segment_reduce, 3))
+    before = counter.launches
+    for scan in scans:
+        padded = torch.from_numpy(eager._prepare(scan)[0]).to(dev)
+        e1, l1 = eager.run(padded)
+        e2, l2 = served._dispatch(padded)
+        assert torch.equal(e1, e2) and torch.equal(l1, l2)
+        e3, l3 = served.infer(scan)
+        assert np.array_equal(e3, e1.cpu().numpy())
+        assert np.array_equal(l3, l1[:len(scan)].cpu().numpy())
+    assert counter.launches == before + per_scan * len(scans)   # eager only
+    assert graph.replays == 2 * len(scans)
+    piped = list(served.infer_pipelined(scans, depth=2))
+    assert all(np.array_equal(a[0], b[0]) for a, b in
+               zip(piped, map(served.infer, scans)))
+    before = counter.launches
+    other = served.infer(synthetic_scan(cfg, rng, 5000))      # 5120 rows
+    assert counter.launches > before and other[1].shape == (5000,)
+    srv = StreamingEngine(served, warmup=False,
+                          use_native_mailbox=False).start()
+    try:
+        seq = srv.submit(scans[0])
+        for _ in range(2000):
+            if srv.latest() is not None and srv.latest()[0] == seq:
+                break
+            time.sleep(0.005)
+        assert srv.errors == 0
+        assert np.array_equal(srv.latest()[1], served.infer(scans[0])[0])
+    finally:
+        srv.stop()

@@ -56,6 +56,10 @@ def test_importing_the_port_loads_no_jax():
     assert "gndnet_tpu_torch.profile_affine" in out
     assert "gndnet_tpu_torch.train" in out
     assert "gndnet_tpu_torch.data.provider" in out
+    for name in ("io_shim", "native", "checkpoint", "ops.transforms",
+                 "utils.compile_cache", "serving.replay",
+                 "serving.ros_node"):
+        assert f"gndnet_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
 
 

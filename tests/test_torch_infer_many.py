@@ -11,6 +11,7 @@ from gndnet_tpu.config import GndNetConfig as JaxConfig
 from gndnet_tpu.infer import GroundInferenceEngine as JaxEngine
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.infer import GroundInferenceEngine
+from gndnet_tpu_torch.ops.postproc import segment_cloud
 from gndnet_tpu_torch.weights import init_state_dict
 from test_torch_infer import SMALL, THRESHOLD, _labels_agree, scene
 
@@ -101,3 +102,18 @@ def test_run_many_reference_path_matches_kernel_path(engines):
     assert e1.shape == (2, 16, 16) and l1.shape == (2, BUCKET)
     assert l1.dtype == torch.int8
     assert torch.equal(e1, e2) and torch.equal(l1, l2)
+
+
+def test_run_many_labels_in_one_batched_gather(engines):
+    """run_many labels its K scans in one batched `segment_cloud` call,
+    bit-equal to labelling each scan against its own map in a loop."""
+    _, teng = engines
+    prepared = [teng._prepare(s)[0] for s in _scans(5, (700, 900, 1000))]
+    padded = torch.from_numpy(np.stack(prepared))
+    elev, labels = teng.run_many(padded)
+    pts = teng.device_points(padded)
+    loop = torch.stack([
+        segment_cloud(p, teng.cfg.grid_range, teng.cfg.voxel_size[0], e.t(),
+                      teng.threshold) for p, e in zip(pts, elev)])
+    assert torch.equal(labels, loop.to(torch.int8))
+    assert set(labels.unique().tolist()) == {-1, 0, 1}
