@@ -82,14 +82,35 @@ Phases, each printing one JSON line:
      result `infer`'s of the last scan), `replay_device` free-wheeling (no
      drops) and at 55 Hz, and `replay` of the 16 scans: sustained Hz, drop
      share, latency p50 / p99;
- 22. the kernels line, the card line, then the result line.
+ 22. generate: a SemanticKITTI-layout sequence of 4 synthetic 100 000-point
+     scans (ground 40/48/72, obstacles 10/50, 2% labelled 0/1) through
+     `generate_dataset` on the card with one worker: every frame written
+     with num_points rows and a finite 100x100 grid, the first frame's
+     grid within GEN_GRID_ATOL of a CPU run's; seconds a frame;
+ 23. evaluate: `evaluate_semantic_kitti` on that sequence at the serving
+     settings, K1, K3 and K2 once a frame, IoU / precision / recall / MSE
+     and ms a frame split between the engine and the host metrics; at
+     float32 / 'highest' the kernel path against the plain path (per-frame
+     metrics from each, IoU within EVAL_IOU_ATOL, differing labels within
+     EVAL_ELEV_ATOL of the threshold); `evaluate_height_rmse` on the
+     generated frames, K3 and K2 once a batch; the CLI
+     `python -m gndnet_tpu_torch.scripts.evaluate --config kitti_sem`;
+ 24. train_augmented: sparse_32beam (50 000 points) frames generated from
+     the sequence, B=2, bf16 'affine', `make_train_step(augment=True)`:
+     5 steps fed by StreamingLoader and prefetch_to_device, K3, K5 and K6
+     once a step, losses finite; ms a step, augmented against unaugmented
+     on the same device batches;
+ 25. the kernels line, the card line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -99,18 +120,26 @@ import time
 import numpy as np
 import torch
 
-from gndnet_tpu_torch import _ext, native, profile_affine, train
+from gndnet_tpu_torch import _ext, evaluate, native, profile_affine, train
 from gndnet_tpu_torch.config import (camera_config, custom_local_config,
-                                     fine_grid_config, kitti_sem_config)
+                                     fine_grid_config, kitti_sem_config,
+                                     sparse_32beam_config)
+from gndnet_tpu_torch.data import generator
+from gndnet_tpu_torch.data.provider import StreamingLoader, prefetch_to_device
 from gndnet_tpu_torch.infer import GroundInferenceEngine, StreamingEngine
 from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
-from gndnet_tpu_torch.ops.postproc import _cell_indices
+from gndnet_tpu_torch.ops.postproc import _cell_indices, lidar_to_heightmap
 from gndnet_tpu_torch.profile_affine import serving_config, time_ms
 from gndnet_tpu_torch.profile_serve import kernel_times
 from gndnet_tpu_torch.serving.replay import replay, replay_device
-from gndnet_tpu_torch.synthetic import synthetic_labelled_batch, synthetic_scan
+from gndnet_tpu_torch.synthetic import (synthetic_labelled_batch,
+                                        synthetic_scan,
+                                        synthetic_semantic_kitti_scan,
+                                        write_semantic_kitti_sequence)
 from gndnet_tpu_torch.weights import init_state_dict
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # CUDA-core float32, H100 SXM data sheet
@@ -1589,6 +1618,309 @@ def streaming(engine, rng, n_points) -> dict:
             "replay": fed.as_dict()}
 
 
+EVAL_FRAMES = 4          # frames of the generated SemanticKITTI sequence
+SCAN_POINTS = 100_000    # points of each raw scan
+AUG_STEPS = 5            # augmented sparse_32beam steps
+EVAL_IOU_ATOL = 1e-4     # IoU, kernel path vs plain path at float32
+EVAL_ELEV_ATOL = 1e-4    # f32 elevation kernel vs plain, as `parity`
+GEN_GRID_ATOL = 1e-6     # generated grid on the card vs the CPU
+
+
+def with_workers(cfg, n: int):
+    return cfg.replace(data_prep=dataclasses.replace(cfg.data_prep,
+                                                     num_workers=n))
+
+
+def generate(cfg, rng, root: str, device) -> dict:
+    """Phase 22: a SemanticKITTI-layout sequence of EVAL_FRAMES synthetic
+    scans (ground 40/48/72, obstacles 10/50, some 0/1 unlabeled) through
+    `generate_dataset` on the card with one worker; every frame written,
+    finite, and the first frame's grid equal to a CPU run's."""
+    raw = os.path.join(root, "raw")
+    seq = os.path.join(raw, "sequences", "00")
+    write_semantic_kitti_sequence(seq, [
+        synthetic_semantic_kitti_scan(cfg, rng, SCAN_POINTS)
+        for _ in range(EVAL_FRAMES)])
+    out = os.path.join(root, "gen")
+    one = with_workers(cfg, 1)
+    t0 = time.perf_counter()
+    n = generator.generate_dataset(raw, out, one, seed=SEED, device=device)
+    seconds = time.perf_counter() - t0
+    require(n == EVAL_FRAMES, f"generate_dataset wrote {n} frames")
+    frames = os.path.join(out, "sequences", "00")
+    for i in range(n):
+        velo = np.load(os.path.join(frames, "reduced_velo", f"{i:06d}.npy"))
+        grid = np.load(os.path.join(frames, "gnd_labels", f"{i:06d}.npy"))
+        require(velo.shape == (cfg.num_points, 4)
+                and np.isfinite(velo).all(), f"generated cloud {i}")
+        require(grid.shape == (cfg.ny, cfg.nx) and np.isfinite(grid).all(),
+                f"generated grid {i}")
+    cpu = os.path.join(root, "gen_cpu")
+    t0 = time.perf_counter()
+    generator.generate_sequence(seq, cpu, one, count=1, index_base=0,
+                                seed=SEED, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    grid = np.load(os.path.join(frames, "gnd_labels", "000000.npy"))
+    grid_cpu = np.load(os.path.join(cpu, "gnd_labels", "000000.npy"))
+    d_grid = float(np.abs(grid - grid_cpu).max())
+    require(d_grid <= GEN_GRID_ATOL, f"generated grid card vs CPU {d_grid}")
+    velo = np.load(os.path.join(frames, "reduced_velo", "000000.npy"))
+    velo_cpu = np.load(os.path.join(cpu, "reduced_velo", "000000.npy"))
+    # one warm frame on the card and on the CPU, in turns; the card's
+    # share: the rasterisation of frame 0's ground points, by CUDA events
+    warm = {"card": [], "cpu": []}
+    for i, (name, dev) in enumerate((("card", device), ("cpu", "cpu"),
+                                     ("card", device), ("cpu", "cpu"))):
+        t0 = time.perf_counter()
+        generator.generate_sequence(seq, os.path.join(root, f"warm{i}"), one,
+                                    count=1, index_base=0, seed=SEED,
+                                    device=dev)
+        warm[name].append(time.perf_counter() - t0)
+    gnd, _ = generator.split_ground(generator.load_scan(
+        os.path.join(seq, "velodyne", "000000.bin"),
+        os.path.join(seq, "labels", "000000.label")))
+    gnd = torch.as_tensor(gnd[:, :3], device=device)
+    raster_ms = time_ms(lambda: lidar_to_heightmap(
+        gnd, cfg.grid_range, cfg.voxel_size[0], 100, cfg.lidar_height))
+    return {"raw": raw, "sequence": seq, "out": out, "result": {
+        "phase": "generate", "frames": n, "points_per_scan": SCAN_POINTS,
+        "num_points": cfg.num_points, "grid": [cfg.ny, cfg.nx],
+        "seconds": seconds, "seconds_per_frame": seconds / n,
+        "cpu_seconds_per_frame": cpu_s,
+        "warm_seconds_per_frame": warm,
+        "rasterise_ms": raster_ms, "ground_points": int(gnd.shape[0]),
+        "grid_max_abs_diff_vs_cpu": d_grid,
+        "grid_atol": GEN_GRID_ATOL,
+        "cloud_rows_differing_vs_cpu": int(
+            (velo != velo_cpu).any(axis=1).sum())}}
+
+
+def f32_eval_parity(cfg, sd, frames, device) -> dict:
+    """The kernel path against the plain path at float32 / 'highest' on
+    the evaluation frames: per-frame metrics from each path's outputs, IoU
+    within EVAL_IOU_ATOL, and every differing label within EVAL_ELEV_ATOL
+    of the threshold, as `parity` requires."""
+    cfg32 = cfg.replace(compute_dtype="float32", matmul_precision="highest")
+    engine = GroundInferenceEngine(cfg32, sd, threshold=0.0,
+                                   shift_cloud=True, device=device)
+    kern, plain, worst = [], [], {"iou": 0.0, "elevation": 0.0, "labels": 0}
+    for cloud, sem in frames:
+        padded, n = engine._prepare(cloud)
+        padded = torch.from_numpy(padded)
+        ek, lk = engine.run(padded)
+        ep, lp = engine.run(padded, reference=True)
+        d_elev = float((ek - ep).abs().max())
+        require(d_elev <= EVAL_ELEV_ATOL, f"f32 eval elevation {d_elev}")
+        gt = evaluate.ground_truth_seg(sem)
+        for out, (e, lab) in ((kern, (ek, lk)), (plain, (ep, lp))):
+            out.append(evaluate.seg_metrics(lab[:n].cpu().numpy(), gt) + (
+                evaluate.height_mse(cfg32, e.cpu().numpy(), cloud, sem,
+                                    True, device),))
+        d_iou = abs(kern[-1][0] - plain[-1][0])
+        require(d_iou <= EVAL_IOU_ATOL,
+                f"f32 eval IoU kernel vs plain {d_iou}")
+        diff = (lk[:n] != lp[:n]).nonzero()[:, 0]
+        if diff.numel():
+            pts = engine.device_points(padded)
+            ix, iy = _cell_indices(pts[diff], cfg.grid_range,
+                                   cfg.voxel_size[0])
+            ix = ix.clamp(0, cfg.nx - 1).long()
+            iy = iy.clamp(0, cfg.ny - 1).long()
+            margin = (pts[diff, 2] - ep.t()[ix, iy]
+                      - engine.threshold).abs()
+            require(bool((margin <= EVAL_ELEV_ATOL).all()),
+                    "evaluation labels differ away from the threshold")
+        worst["iou"] = max(worst["iou"], d_iou)
+        worst["elevation"] = max(worst["elevation"], d_elev)
+        worst["labels"] += int(diff.numel())
+    api = evaluate.evaluate_frames(cfg32, sd, frames, 0.0, True,
+                                   device=device)
+    d_api = float(np.abs(np.array(api.per_frame)[:, 0]
+                         - np.array(kern)[:, 0]).max())
+    require(d_api <= EVAL_IOU_ATOL, f"f32 evaluate_frames vs run {d_api}")
+    return {"iou_atol": EVAL_IOU_ATOL, "elevation_atol": EVAL_ELEV_ATOL,
+            "max_abs_diff": worst, "kernel_per_frame": kern,
+            "plain_per_frame": plain}
+
+
+def evaluate_phase(cfg, sd, seq: str, gen_out: str, device) -> dict:
+    """Phase 23: `evaluate_semantic_kitti` at the serving settings (K1, K3
+    and K2 once a frame), its time split between the engine and the host
+    metrics, the float32 kernel path against the plain path,
+    `evaluate_height_rmse` on the generated frames (K3 and K2 once a
+    batch), and the evaluation CLI as shipped."""
+    frames = list(evaluate.semantic_kitti_frames(seq))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate.evaluate_semantic_kitti(cfg, sd, seq, threshold=0.0,
+                                           device=device)
+    api_s = time.perf_counter() - t0
+    launches = {"evaluate": read_launches((K1, K3, K2), "evaluate")}
+    for fn in (K1, K3, K2):
+        require(fn.launches == len(frames),
+                f"{fn.__name__} launched {fn.launches} times for "
+                f"{len(frames)} evaluated frames, not once a frame")
+    require(res.frames == len(frames) and 0 <= res.iou <= 1
+            and np.isfinite(res.mse), f"evaluation result {res.as_dict()}")
+
+    # the loop of evaluate_frames on a warm engine, timed by part
+    engine = GroundInferenceEngine(cfg, sd, threshold=0.0, shift_cloud=True,
+                                   device=device)
+    engine.warmup()
+    engine_s = metrics_s = 0.0
+    per = []
+    for cloud, sem in frames:
+        t0 = time.perf_counter()
+        pred, seg = engine.infer(cloud)
+        t1 = time.perf_counter()
+        per.append(evaluate.seg_metrics(seg, evaluate.ground_truth_seg(sem))
+                   + (evaluate.height_mse(cfg, pred, cloud, sem, True,
+                                          device),))
+        metrics_s += time.perf_counter() - t1
+        engine_s += t1 - t0
+    d_rep = float(np.abs(np.array(per) - np.array(res.per_frame)).max())
+    require(d_rep <= EVAL_IOU_ATOL, f"timed loop vs evaluate {d_rep}")
+
+    parity32 = f32_eval_parity(cfg, sd, frames, device)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rmse = evaluate.evaluate_height_rmse(cfg, sd, gen_out, split="sequences",
+                                         device=device)
+    rmse_s = time.perf_counter() - t0
+    launches["evaluate_height_rmse"] = read_launches((K3, K2),
+                                                     "evaluate_height_rmse")
+    batches = -(-EVAL_FRAMES // cfg.batch_size)
+    for fn in (K3, K2):
+        require(fn.launches == batches,
+                f"{fn.__name__} launched {fn.launches} times for {batches} "
+                "evaluate_height_rmse batches, not once a batch")
+    require(rmse["frames"] == EVAL_FRAMES
+            and np.isfinite(rmse["per_frame"]).all(), f"rmse {rmse}")
+
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "gndnet_tpu_torch.scripts.evaluate",
+         "--config", "kitti_sem", "--data_dir", seq], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(cli.returncode == 0, f"evaluate CLI exit {cli.returncode}: "
+                                 f"{cli.stderr[-2000:]}")
+    printed = ast.literal_eval(cli.stdout.strip().splitlines()[-1])
+    require(printed["frames"] == len(frames) and np.isfinite(printed["mse"]),
+            f"evaluate CLI printed {printed}")
+    n = len(frames)
+    return {"launches": launches, "result": {
+        "phase": "evaluate", "fused_impl": cfg.fused_impl,
+        "compute_dtype": cfg.compute_dtype, "frames": n,
+        "points_per_scan": int(frames[0][0].shape[0]), "threshold": 0.0,
+        "metrics": res.as_dict(), "seconds": api_s,
+        "ms_per_frame": api_s / n * 1e3,
+        "warm_ms_per_frame": (engine_s + metrics_s) / n * 1e3,
+        "warm_engine_ms_per_frame": engine_s / n * 1e3,
+        "warm_metrics_ms_per_frame": metrics_s / n * 1e3,
+        "engine_share": engine_s / (engine_s + metrics_s),
+        "launches": launches["evaluate"], "f32_parity": parity32,
+        "height_rmse": {"frames": rmse["frames"], "rmse": rmse["rmse"],
+                        "batches": batches, "seconds": rmse_s,
+                        "launches": launches["evaluate_height_rmse"]},
+        "cli": {"config": "kitti_sem", "exit": cli.returncode,
+                "seconds": cli_s, "printed": printed}}}
+
+
+def timed_steps(step, state, batches) -> tuple:
+    """(state, losses, ms a step) of `step` over device `batches`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for pts, labels in batches:
+        state, loss = step(state, pts, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    return state, [float(v) for v in losses], ms
+
+
+def train_augmented(raw: str, root: str, device) -> dict:
+    """Phase 24: sparse_32beam (50 000 points, the kitti_sem grid) at B=2,
+    bf16 'affine', augment=True: its frames generated from the raw
+    sequence, AUG_STEPS steps fed by StreamingLoader and
+    prefetch_to_device, K3, K5 and K6 once a step; then the augmented and
+    the unaugmented step on the same device batches, ms a step each."""
+    cfg = serving_config(sparse_32beam_config())
+    out = os.path.join(root, "gen_sparse")
+    t0 = time.perf_counter()
+    n = generator.generate_dataset(raw, out, with_workers(cfg, 1), seed=SEED,
+                                   device=device)
+    gen_s = time.perf_counter() - t0
+    require(n == EVAL_FRAMES, f"sparse_32beam frames written: {n}")
+    loader = StreamingLoader(out, "sequences", TRAIN_BATCH,
+                             num_input_features=cfg.input_features,
+                             seed=SEED)
+
+    def stream(steps):
+        epoch, k = 0, 0
+        while True:
+            for item in loader.epoch(epoch):
+                yield item
+                k += 1
+                if k == steps:
+                    return
+            epoch += 1
+
+    sd = init_state_dict(cfg, seed=SEED)
+    state = train.create_train_state(cfg, len(loader), state_dict=sd,
+                                     device=device)
+    step = train.make_train_step(cfg, augment=True)
+    feed = prefetch_to_device(stream(AUG_STEPS + 1), device)
+    warm = next(feed)
+    state, loss = step(state, *warm)                     # cuDNN plans
+    require(bool(torch.isfinite(loss)), "first augmented loss finite")
+    reset_launches()
+    t0 = time.perf_counter()
+    staged, losses = [], []
+    for pts, labels in feed:
+        state, loss = step(state, pts, labels)
+        staged.append((pts, labels))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    stream_ms = (time.perf_counter() - t0) / len(staged) * 1e3
+    launches = read_launches((K3, K5, K6), "train_augmented")
+    require(len(staged) == AUG_STEPS, f"{len(staged)} streamed batches")
+    for fn in (K3, K5, K6):
+        require(fn.launches == AUG_STEPS,
+                f"{fn.__name__} launched {fn.launches} times in {AUG_STEPS} "
+                "augmented steps, not once a step")
+    losses = [float(v) for v in losses]
+    require(all(np.isfinite(losses)), f"augmented losses finite: {losses}")
+
+    state, aug_losses, aug_ms = timed_steps(step, state, staged)
+    plain = train.create_train_state(cfg, len(loader), state_dict=sd,
+                                     device=device)
+    plain_step = train.make_train_step(cfg)
+    plain, _ = plain_step(plain, *warm)
+    plain, plain_losses, plain_ms = timed_steps(plain_step, plain, staged)
+    require(all(np.isfinite(aug_losses + plain_losses)),
+            "staged losses finite")
+    aug_ops, aug_dev_ms = device_profile(lambda: step(state, *warm))
+    plain_ops, plain_dev_ms = device_profile(lambda: plain_step(plain,
+                                                                *warm))
+    return {"launches": launches, "result": {
+        "phase": "train_augmented", "config": "sparse_32beam",
+        "fused_impl": cfg.fused_impl, "compute_dtype": cfg.compute_dtype,
+        "batch": TRAIN_BATCH, "points_per_scan": cfg.num_points,
+        "generate_seconds": gen_s, "steps": AUG_STEPS, "losses": losses,
+        "launches": launches, "streamed_ms_per_step": stream_ms,
+        "staged_augmented_ms_per_step": aug_ms,
+        "staged_unaugmented_ms_per_step": plain_ms,
+        "device_ms_per_step": {"augmented": aug_dev_ms,
+                               "unaugmented": plain_dev_ms},
+        "device_ops_per_step": {"augmented": aug_ops,
+                                "unaugmented": plain_ops},
+        "staged_losses": {"augmented": aug_losses,
+                          "unaugmented": plain_losses}}}
+
+
 REPLACES = {
     "cluster_radix_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
                                "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
@@ -1652,7 +1984,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-21 on `device`; returns the kernels line's entries."""
+    """Phases 3-24 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -1754,6 +2086,17 @@ def run(cfg, n_points: int, device) -> list:
     emit(aot["result"])
     emit(pipelined(aot["engine"], aot["scans"], rng, n_points))
     emit(streaming(aot["engine"], rng, n_points))
+
+    with tempfile.TemporaryDirectory(prefix="gndnet_smoke_") as root:
+        gen = generate(cfg, rng, root, device)
+        emit(gen["result"])
+        evaluated = evaluate_phase(cfg, sd, gen["sequence"], gen["out"],
+                                   device)
+        paths.update(evaluated["launches"])
+        emit(evaluated["result"])
+        trained = train_augmented(gen["raw"], root, device)
+        paths["train_augmented"] = trained["launches"]
+        emit(trained["result"])
 
     kernels = []
     for row in rows:

@@ -1,6 +1,7 @@
 """Dataset provider: counterparts of `gndnet_tpu.data.provider`'s
 `index_frames`, `GroundDataset` and `iterate_batches` (the reference's
-kitti_gnd_sync loader and DataLoader arguments), and of its device prefetch
+kitti_gnd_sync loader and DataLoader arguments), `StreamingLoader` (a
+background thread streaming batches from disk), and of its device prefetch
 as pinned host memory plus a non-blocking copy."""
 
 from __future__ import annotations
@@ -8,6 +9,8 @@ from __future__ import annotations
 import collections
 import logging
 import os
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -80,6 +83,80 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = True,
     for s in range(0, stop, batch_size):
         idx = order[s:s + batch_size]
         yield dataset.data[idx], dataset.labels[idx]
+
+
+class StreamingLoader:
+    """Background-thread disk streaming with a bounded prefetch queue.
+
+    Streams batches without holding the dataset in RAM; each epoch
+    reshuffles the frame index from `seed + epoch`.  The working form of
+    the reference's SharedMemory AsyncDataLoader
+    (dataset_provider.py:26-127, whose label map aliases the data buffer,
+    a bug not reproduced)."""
+
+    def __init__(self, data_dir: str, split: str, batch_size: int,
+                 skip_frames: int = 1, num_input_features: int = 3,
+                 queue_depth: int = 4, seed: int = 0, drop_last: bool = True):
+        self.pairs = index_frames(data_dir, split, skip_frames)
+        if not self.pairs:
+            raise FileNotFoundError(f"no frames under {data_dir}/{split}")
+        self.batch_size = batch_size
+        self.num_input_features = num_input_features
+        self.queue_depth = queue_depth
+        self.seed = seed
+        self.drop_last = drop_last
+
+    def __len__(self):
+        n = len(self.pairs)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def epoch(self, epoch: int = 0) -> Iterator[tuple]:
+        """Yield (clouds (B, P, F), labels (B, H, W)) float32 numpy
+        batches, read by a daemon thread at most `queue_depth` ahead.  A
+        consumer that stops early (closes or drops the generator) stops
+        the thread too, even while it waits on a full queue."""
+        order = np.arange(len(self.pairs))
+        np.random.default_rng(self.seed + epoch).shuffle(order)
+        stop = (len(order) - (len(order) % self.batch_size)
+                if self.drop_last else len(order))
+        q: queue.Queue = queue.Queue(maxsize=self.queue_depth)
+        stop_flag = threading.Event()
+
+        def put(item) -> bool:
+            while not stop_flag.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for s in range(0, stop, self.batch_size):
+                    idx = order[s:s + self.batch_size]
+                    clouds = np.stack([
+                        np.load(self.pairs[i][0])[:, :self.num_input_features]
+                        .astype(np.float32) for i in idx])
+                    labels = np.stack([
+                        np.load(self.pairs[i][1]).astype(np.float32)
+                        for i in idx])
+                    if not put((clouds, labels)):
+                        return
+            finally:
+                put(None)
+
+        threading.Thread(target=worker, daemon=True,
+                         name="StreamingLoader").start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                yield item
+        finally:
+            stop_flag.set()
 
 
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -139,13 +139,20 @@ def _run_start_positions(sorted_cell: torch.Tensor):
     return pos, torch.cummax(start, dim=0).values
 
 
+def stream_ranks(cell: torch.Tensor) -> torch.Tensor:
+    """(M,) int32 occurrence rank of every entry of the id stream `cell`
+    among the entries of its id, in stream order: a stable sort by id keeps
+    each id's entries in order, so rank = sorted position - run start,
+    scattered back."""
+    order = torch.argsort(cell, stable=True)
+    pos, start = _run_start_positions(cell[order])
+    return torch.zeros_like(pos).scatter_(0, order, pos - start)
+
+
 def point_ranks(ctx: PointContext) -> torch.Tensor:
     """(M,) int32 occurrence rank of every point within its cell, in stream
-    order: a stable sort by cell id keeps each cell's points in order, so
-    rank = sorted position - run start, scattered back."""
-    order = torch.argsort(ctx.cell, stable=True)
-    pos, start = _run_start_positions(ctx.cell[order])
-    return torch.zeros_like(pos).scatter_(0, order, pos - start)
+    order."""
+    return stream_ranks(ctx.cell)
 
 
 def _decorate(pts, cx, cy, mean_pp, keptf, geom, with_distance):

@@ -6,18 +6,34 @@ sensor, as a spinning lidar sees it), box obstacles, a dense patch whose
 cells hold more points than the per-cell cap, and points outside the
 pc_range box.  `synthetic_labelled_batch` adds what training needs: a
 sloped ground and its elevation at every cell, the label grid of the
-reference's gnd_labels.
+reference's gnd_labels.  `synthetic_semantic_kitti_scan` and
+`write_semantic_kitti_sequence` make raw SemanticKITTI-layout sequences
+(velodyne/*.bin, labels/*.label) of such scans for the generator and the
+evaluation harness, with the dataset's class ids.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+GROUND_IDS = (40, 48, 72)       # road, sidewalk, terrain
+OBSTACLE_IDS = (10, 50)         # car, building
+UNLABELED_IDS = (0, 1)          # unlabeled, outlier
+UNLABELED_SHARE = 0.02
 
 
 def synthetic_scan(cfg, rng, n: int = 100_000) -> np.ndarray:
     """A kitti_sem-like sensor-frame scan: a ground plane at -lidar_height,
     box obstacles, a dense patch whose cells hold more than the point cap,
     and points outside the pc_range box."""
+    return _scan_and_kinds(cfg, rng, n)[0]
+
+
+def _scan_and_kinds(cfg, rng, n: int) -> tuple:
+    """`synthetic_scan`'s points and each point's part: 0 ground, 1 box,
+    2 dense patch, 3 out of range."""
     x0, y0, _, x1, y1, _ = cfg.pc_range
     pts = np.zeros((n, cfg.input_features), np.float32)
     n_ground, n_box, n_dense = int(n * 0.6), int(n * 0.25), int(n * 0.05)
@@ -45,7 +61,10 @@ def synthetic_scan(cfg, rng, n: int = 100_000) -> np.ndarray:
     pts[:, :3] = np.concatenate([g, b, d, o])
     intensity = rng.uniform(0, 1, n)
     pts[:, 3:] = intensity[:, None]          # none for 3-feature configs
-    return pts[rng.permutation(n)]
+    kinds = np.repeat(np.arange(4, dtype=np.int8),
+                      [n_ground, n_box, n_dense, n_out])
+    order = rng.permutation(n)
+    return pts[order], kinds[order]
 
 
 def synthetic_labelled_batch(cfg, rng, b: int, n: int = 100_000):
@@ -68,3 +87,36 @@ def synthetic_labelled_batch(cfg, rng, b: int, n: int = 100_000):
         labels[i] = (-cfg.lidar_height + sx * cx[None, :]
                      + sy * cy[:, None])
     return points, labels
+
+
+def synthetic_semantic_kitti_scan(cfg, rng, n: int = 100_000) -> tuple:
+    """(xyzr (n, 4) float32, labels (n,) uint32): a `synthetic_scan` whose
+    ground is a random plane of slope up to 3% per axis, lifted with
+    everything above it, labelled with SemanticKITTI class ids: ground and
+    the dense patch from GROUND_IDS, boxes and out-of-range points from
+    OBSTACLE_IDS, and UNLABELED_SHARE of all points from UNLABELED_IDS."""
+    pts, kinds = _scan_and_kinds(cfg, rng, n)
+    sx, sy = rng.uniform(-0.03, 0.03, 2)
+    xyzr = np.empty((n, 4), np.float32)
+    xyzr[:, :3] = pts[:, :3]
+    xyzr[:, 2] += sx * pts[:, 0] + sy * pts[:, 1]
+    xyzr[:, 3] = rng.uniform(0, 1, n)
+    ground = (kinds == 0) | (kinds == 2)
+    labels = np.where(ground, rng.choice(GROUND_IDS, n),
+                      rng.choice(OBSTACLE_IDS, n)).astype(np.uint32)
+    unlabeled = rng.random(n) < UNLABELED_SHARE
+    labels[unlabeled] = rng.choice(UNLABELED_IDS, int(unlabeled.sum()))
+    return xyzr, labels
+
+
+def write_semantic_kitti_sequence(seq_dir: str, scans) -> None:
+    """Write (xyzr (N, 4) float32, labels (N,) uint32) scans as a
+    SemanticKITTI sequence: seq_dir/velodyne/%06d.bin and
+    seq_dir/labels/%06d.label."""
+    os.makedirs(os.path.join(seq_dir, "velodyne"), exist_ok=True)
+    os.makedirs(os.path.join(seq_dir, "labels"), exist_ok=True)
+    for i, (xyzr, labels) in enumerate(scans):
+        np.asarray(xyzr, np.float32).tofile(
+            os.path.join(seq_dir, "velodyne", f"{i:06d}.bin"))
+        np.asarray(labels, np.uint32).tofile(
+            os.path.join(seq_dir, "labels", f"{i:06d}.label"))

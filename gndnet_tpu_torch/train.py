@@ -1,6 +1,8 @@
 """Training: the train and eval steps and the epoch loop.
 
 Counterpart of `gndnet_tpu.train` for single-device fused training:
+optionally the on-device augmentation of the batch
+(`data.augmentation.device_augment`), then
 `GroundEstimatorNet.fused(points, train=True)` on the raw (B, N, F) batch
 (the affine canvas with K4/K5 forward and K6 backward, or the scatter
 canvas; a use_norm PFN on batch statistics through the scatter frontend;
@@ -28,6 +30,7 @@ from gndnet_tpu_torch._ext import resolve_device
 from gndnet_tpu_torch.checkpoint import (latest_checkpoint,
                                          restore_checkpoint, save_checkpoint)
 from gndnet_tpu_torch.config import GndNetConfig
+from gndnet_tpu_torch.data import augmentation as aug
 from gndnet_tpu_torch.data.provider import (GroundDataset, iterate_batches,
                                             prefetch_to_device)
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
@@ -35,6 +38,9 @@ from gndnet_tpu_torch.models.segnet import no_tf32
 from gndnet_tpu_torch.utils.logging import AverageMeter, setup_logger
 from gndnet_tpu_torch.utils.schedules import step_lr
 from gndnet_tpu_torch.weights import init_state_dict
+
+
+AUGMENT_SEED = 0    # the JAX package keys augmentation on PRNGKey(0)
 
 
 def clip_by_global_norm(params, max_norm: float) -> None:
@@ -112,7 +118,7 @@ def create_train_state(cfg: GndNetConfig, steps_per_epoch: int,
     if loss_scaling:
         raise NotImplementedError(
             "loss scaling (the JAX package's DynamicScale) is ROADMAP.md "
-            "queue 1, 'Loss scaling'")
+            "queue 1, item 6, 'Loss scaling'")
     model = GroundEstimatorNet(cfg, device=device)
     model.load_state_dict(init_state_dict(cfg, seed) if state_dict is None
                           else state_dict)
@@ -138,14 +144,20 @@ def make_train_step(cfg: GndNetConfig, augment: bool = False,
     state is updated in place.  The loss is returned on the device (no
     host sync).  At float32 / 'highest' on the card TF32 stays off through
     the backward too.  `reference=True` runs the plain version of every
-    kernel stage."""
-    if augment:
-        raise NotImplementedError(
-            "on-device augmentation is ROADMAP.md queue 1, 'Augmentation'")
+    kernel stage.
+
+    `augment=True` first rotates and lifts the batch and its labels on the
+    device (`data.augmentation`), drawn from a generator seeded from
+    (AUGMENT_SEED, state.step): a fresh draw every optimizer step, the same
+    draw for the same step (the JAX package's fold_in(PRNGKey(0), step))."""
     total = loss_fn(cfg)
 
     def step(state: TrainState, points, labels):
         points, labels = _as_batch(state, points, labels)
+        if augment:
+            points, labels = aug.device_augment(
+                points, labels, aug.augment_generator(
+                    AUGMENT_SEED, state.step, points.device), cfg)
         model = state.model
         with no_tf32(model.encoder_decoder.full_f32(model.device)):
             loss = total(model.fused(points, train=True,
@@ -203,7 +215,7 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
     if dp * sp > 1:
         raise NotImplementedError(
             "dp/sp > 1 (data and spatial parallel training) is ROADMAP.md "
-            "queue 1, 'Multi-GPU (dp/sp)'")
+            "queue 1, item 9, 'Multi-GPU (dp/sp)'")
     device = resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
     logger = logger or setup_logger(

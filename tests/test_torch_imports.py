@@ -58,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
     assert "gndnet_tpu_torch.data.provider" in out
     for name in ("io_shim", "native", "checkpoint", "ops.transforms",
                  "utils.compile_cache", "serving.replay",
-                 "serving.ros_node"):
+                 "serving.ros_node", "evaluate", "ops.postproc",
+                 "data.augmentation", "data.generator", "synthetic",
+                 "scripts.evaluate", "scripts.generate_data"):
         assert f"gndnet_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
 

@@ -21,7 +21,8 @@ from test_torch_train import SMALL, _labelled
 
 def test_train_step_paths_and_errors():
     """The plain path (reference=True) takes the same steps as the kernel
-    path's CPU run, and the options this slice does not carry raise."""
+    path's CPU run, augmentation runs, and the options the port does not
+    carry yet raise with their ROADMAP item."""
     cfg = GndNetConfig(**SMALL).replace(compute_dtype="bfloat16",
                                         matmul_precision="default")
     pts, labels = _labelled(np.random.default_rng(2), cfg)
@@ -31,11 +32,12 @@ def test_train_step_paths_and_errors():
         _, la = train.make_train_step(cfg)(a, pts, labels)
         _, lb = train.make_train_step(cfg, reference=True)(b, pts, labels)
         assert torch.equal(la, lb)
-    with pytest.raises(NotImplementedError, match="Augmentation"):
-        train.make_train_step(cfg, augment=True)
-    with pytest.raises(NotImplementedError, match="Loss scaling"):
+    # augmentation runs (test_torch_train_augment.py holds it)
+    _, loss = train.make_train_step(cfg, augment=True)(a, pts, labels)
+    assert bool(torch.isfinite(loss))
+    with pytest.raises(NotImplementedError, match="item 6, 'Loss scaling'"):
         train.create_train_state(cfg, 10, loss_scaling=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 9, 'Multi-GPU"):
         train.train_and_evaluate(cfg, dp=2, device="cpu")
     # use_norm training runs (through the scatter frontend, as JAX routes
     # it); test_torch_train_scatter.py holds it against JAX
