@@ -100,7 +100,25 @@ Phases, each printing one JSON line:
      5 steps fed by StreamingLoader and prefetch_to_device, K3, K5 and K6
      once a step, losses finite; ms a step, augmented against unaugmented
      on the same device batches;
- 25. the kernels line, the card line, then the result line.
+ 25. pillar_path: the reference-style path at kitti_sem as shipped
+     (f32, 'highest', TF32 off), B=2 scans: `pillarize_batch` + `forward`
+     against the fused 'scatter' path (canvas within 1e-5 of scale,
+     elevation within IMPL_ELEV_ATOL), no K1-K10 launch; a pillar-path
+     train step with use_norm off and on, the use_norm invariant (fused
+     step against pillar step: loss rel 1e-4, parameters rtol 1e-3); a
+     two-layer PFN (32, 64) forward and step, every parameter moved;
+     fine_grid's `pillarize` (n_pillars == max_voxels, the earliest cells);
+     ms and peak device memory;
+ 26. loss_scaling: a kitti_sem B=2 bf16 'affine' step with loss scaling
+     (K3, K5, K6 once) against the unscaled step, and a forced overflow
+     that is skipped (nothing moves but the halved scale and the step
+     count);
+ 27. cli: on phase 22's pairs, `train --impl affine --bf16 --epochs 1 -s`
+     (K5, K6 once a step; K3 once a step and a validation batch; K2 once a
+     validation batch), `-e` resumed, `predict` from the checkpoint
+     directory under a serving YAML (K1, K3, K2 once; equal to the
+     engine), `convert_checkpoint` both ways bit-equal;
+ 28. the kernels line, the card line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -127,11 +145,12 @@ from gndnet_tpu_torch.config import (camera_config, custom_local_config,
 from gndnet_tpu_torch.data import generator
 from gndnet_tpu_torch.data.provider import StreamingLoader, prefetch_to_device
 from gndnet_tpu_torch.infer import GroundInferenceEngine, StreamingEngine
+from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import _cell_indices, lidar_to_heightmap
 from gndnet_tpu_torch.profile_affine import serving_config, time_ms
-from gndnet_tpu_torch.profile_serve import kernel_times
+from gndnet_tpu_torch.profile_serve import card, kernel_times
 from gndnet_tpu_torch.serving.replay import replay, replay_device
 from gndnet_tpu_torch.synthetic import (synthetic_labelled_batch,
                                         synthetic_scan,
@@ -200,14 +219,18 @@ def main_path_inputs(engine, padded: torch.Tensor):
 def device_profile(fn) -> tuple:
     """The CUDA kernels one warm call of fn() enqueues and their device
     milliseconds, by torch.profiler over 20 calls; again, up to 3 windows,
-    when a window recorded no device activity (torch.profiler now and then
-    drops a window's device records in a long process)."""
+    when a window recorded fewer device operations than calls (every fn
+    profiled here launches at least one kernel a call; torch.profiler now
+    and then drops some or all of a window's device records in a long
+    process)."""
     fn()
     for _ in range(3):
         prof = kernel_times(fn, 20)
-        if isinstance(prof.get("device_ops_per_call"), float):
-            return prof["device_ops_per_call"], prof["device_ms_per_call"]
-    require(False, "the profiler saw no kernel in 3 windows")
+        ops = prof.get("device_ops_per_call")
+        if isinstance(ops, float) and ops >= 1.0:
+            return ops, prof["device_ms_per_call"]
+    require(False, "the profiler recorded fewer kernels than calls in 3 "
+                   "windows")
 
 
 def check_sort(key: torch.Tensor, rng) -> dict:
@@ -1921,6 +1944,353 @@ def train_augmented(raw: str, root: str, device) -> dict:
                           "unaugmented": plain_losses}}}
 
 
+PILLAR_STEP_RTOL = 1e-3     # the use_norm invariant (tests/test_train.py)
+# its loss: the two steps take the PFN's batch statistics over 2e5 flat
+# rows and over 2e6 pillar rows, var = E[z^2] - E[z]^2 in float32 either
+# way; this phase measured up to 1.80e-5 at kitti_sem's width on an H100
+# 80GB HBM3 at 700 W (tests/test_train.py's 1e-5 is for a 16x16 grid)
+PILLAR_LOSS_RTOL = 1e-4
+INVARIANT_BATCHES = 4
+PILLAR_CANVAS_SHARE = 1e-5  # pillar canvas vs fused 'scatter', of scale
+
+
+def share_of_scale(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-12)
+
+
+def peak_memory_gb(fn) -> tuple:
+    """(fn's result, ms by the host clock, peak device memory in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def earliest_pillars_kept(scan: np.ndarray, cfg, pb) -> dict:
+    """fine_grid's `pillarize`: more occupied cells than `max_voxels`, so
+    exactly `max_voxels` pillars, which must be the cells first touched
+    earliest in the scan, in that order (numpy on the host)."""
+    lo = np.asarray(cfg.pc_range[:3], np.float32)
+    vs = np.asarray(cfg.voxel_size, np.float32)
+    c = np.floor((scan[:, :3] - lo) / vs).astype(np.int64)    # float32
+    grid = np.asarray(cfg.grid_size)
+    ok = ((c >= 0) & (c < grid)).all(axis=1)
+    cell = (c[ok, 2] * cfg.ny + c[ok, 1]) * cfg.nx + c[ok, 0]
+    uniq, first = np.unique(cell, return_index=True)
+    want = uniq[np.argsort(first)][:cfg.max_voxels]
+    coors = pb.coors.cpu().numpy().astype(np.int64)
+    got = (coors[:, 0] * cfg.ny + coors[:, 1]) * cfg.nx + coors[:, 2]
+    require(len(uniq) > cfg.max_voxels, f"fine_grid scan occupies "
+            f"{len(uniq)} cells, not more than {cfg.max_voxels}")
+    require(int(pb.n_pillars) == cfg.max_voxels and bool(pb.mask.all()),
+            f"fine_grid n_pillars {int(pb.n_pillars)}")
+    require(np.array_equal(got, want), "fine_grid pillars are not the "
+                                       "earliest-touched cells in order")
+    return {"occupied_cells": int(len(uniq)), "max_voxels": cfg.max_voxels,
+            "n_pillars": int(pb.n_pillars)}
+
+
+def pillar_step(cfg, sd, points, labels, device, use_pillar_path=True):
+    state = train.create_train_state(cfg, 100, state_dict=sd, device=device)
+    before = params_of(state)
+    step = train.make_train_step(cfg, use_pillar_path=use_pillar_path)
+    (state, loss), ms, peak = peak_memory_gb(
+        lambda: step(state, points, labels))
+    loss = float(loss)
+    require(np.isfinite(loss), f"pillar-path loss {loss}")
+    return state, loss, before, ms, peak
+
+
+def use_norm_invariant(cfg, pts, lab, rng, n_points: int, device) -> dict:
+    """The fused use_norm step against the pillar-path step from the same
+    weights (tests/test_train.py:196-215) on INVARIANT_BATCHES batches,
+    the first `pts`: loss within PILLAR_LOSS_RTOL, parameters within
+    PILLAR_STEP_RTOL / atol 1e-5."""
+    c = cfg.replace(use_norm=True)
+    csd = init_state_dict(c, seed=SEED)
+    rels, worst = [], 0.0
+    for k in range(INVARIANT_BATCHES):
+        if k:
+            batch = synthetic_labelled_batch(c, rng, TRAIN_BATCH, n_points)
+            pts, lab = (torch.as_tensor(x, device=device) for x in batch)
+        pillar, loss, _, _, _ = pillar_step(c, csd, pts, lab, device)
+        fused, fused_loss, _, _, _ = pillar_step(c, csd, pts, lab, device,
+                                                 use_pillar_path=False)
+        rels.append(abs(fused_loss - loss) / abs(loss))
+        a, b = params_of(pillar), params_of(fused)
+        bad = [n for n in a if not torch.allclose(
+            b[n], a[n], rtol=PILLAR_STEP_RTOL, atol=1e-5)]
+        require(not bad, f"use_norm fused vs pillar step: {bad}")
+        worst = max(worst, max(float((b[n] - a[n]).abs().max()) for n in a))
+    require(max(rels) <= PILLAR_LOSS_RTOL,
+            f"use_norm fused vs pillar step losses {rels}")
+    return {"loss_rel_diff": rels, "loss_rtol": PILLAR_LOSS_RTOL,
+            "param_rtol": PILLAR_STEP_RTOL, "param_max_abs_diff": worst}
+
+
+def pillar_path(rng, n_points: int, device) -> dict:
+    """Phase 25: the reference-style pillar path at kitti_sem as shipped
+    (float32, 'highest', TF32 off), B=2 scans of n_points:
+    `pillarize_batch` + `forward` against the fused 'scatter' path (canvas
+    within PILLAR_CANVAS_SHARE of scale, elevation within IMPL_ELEV_ATOL),
+    no kernel of K1-K10 launched; one pillar-path train step with use_norm
+    off and on, and the use_norm invariant (the fused step against the
+    pillar step); a two-layer PFN (vfe_filters (32, 64)) forward and step,
+    finite, every parameter moved; fine_grid's `pillarize` over capacity.
+    ms a forward and a step by the host clock, peak device memory."""
+    cfg = SHIPPED["kitti_sem"]()
+    sd = init_state_dict(cfg, seed=SEED)
+    set_bn_stats(sd, rng)
+    points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
+                                              n_points)
+    pts = torch.as_tensor(points, device=device)
+    model = GroundEstimatorNet(cfg, device=device)
+    model.load_state_dict(sd)
+    out = {"phase": "pillar_path", "card": card(), "batch": TRAIN_BATCH,
+           "points_per_scan": n_points, "max_voxels": cfg.max_voxels,
+           "elevation_atol": IMPL_ELEV_ATOL,
+           "canvas_share": PILLAR_CANVAS_SHARE}
+
+    def forward():
+        pb = pz.pillarize_batch(pts, model.geom, cfg.max_points_voxel,
+                                cfg.max_voxels)
+        return pb, model(pb.voxels, pb.coors, pb.num_points, pb.mask)
+
+    forward()                                          # warm: cuDNN plans
+    reset_launches()
+    (pb, elev), fwd_ms, fwd_peak = peak_memory_gb(forward)
+    read_launches((), "pillar_path")
+    with torch.no_grad():
+        canvas = model.pillar_canvas(pb.voxels, pb.coors, pb.num_points,
+                                     pb.mask)
+        fused_canvas = model.canvas(pts)
+        fused = model.fused(pts)
+    d_canvas = share_of_scale(canvas, fused_canvas)
+    d_elev = float((elev - fused).abs().max())
+    require(d_canvas <= PILLAR_CANVAS_SHARE,
+            f"pillar canvas vs fused: {d_canvas} of scale")
+    require(d_elev <= IMPL_ELEV_ATOL, f"pillar elevation vs fused {d_elev}")
+    out["forward"] = {"ms": fwd_ms, "peak_mem_gb": fwd_peak,
+                      "n_pillars": [int(n) for n in pb.n_pillars],
+                      "canvas_diff_of_scale": d_canvas,
+                      "elevation_max_abs_diff": d_elev}
+
+    lab = torch.as_tensor(labels, device=device)
+    steps = {}
+    for use_norm in (False, True):
+        c = cfg.replace(use_norm=use_norm)
+        csd = init_state_dict(c, seed=SEED)
+        pillar_step(c, csd, pts, lab, device)             # warm
+        reset_launches()
+        state, loss, before, ms, peak = pillar_step(c, csd, pts, lab,
+                                                    device)
+        read_launches((), "pillar_path_train")
+        moved = [k for k, v in params_of(state).items()
+                 if not torch.equal(v, before[k])]
+        require(len(moved) == len(before), "pillar step: parameters that "
+                f"did not move: {sorted(set(before) - set(moved))}")
+        steps[f"use_norm_{use_norm}"] = {"loss": loss, "ms": ms,
+                                         "peak_mem_gb": peak}
+    steps["use_norm_invariant"] = use_norm_invariant(cfg, pts, lab, rng,
+                                                     n_points, device)
+    out["train"] = steps
+
+    deep = cfg.replace(vfe_filters=(32, 64), use_norm=True)
+    dsd = init_state_dict(deep, seed=SEED)
+    dmodel = GroundEstimatorNet(deep, device=device)
+    dmodel.load_state_dict(dsd)
+    delev = dmodel(pb.voxels, pb.coors, pb.num_points, pb.mask)
+    require(bool(torch.isfinite(delev).all()), "two-layer PFN elevation")
+    _, dloss, _, dms, dpeak = pillar_step(deep, dsd, pts, lab, device)
+    state, dloss, before, dms, dpeak = pillar_step(deep, dsd, pts, lab,
+                                                   device)
+    still = [k for k, v in params_of(state).items()
+             if torch.equal(v, before[k])]
+    require(not still, f"two-layer PFN step: parameters unmoved {still}")
+    out["vfe_32_64"] = {"loss": dloss, "ms": dms, "peak_mem_gb": dpeak,
+                        "params": len(before)}
+
+    fine = SHIPPED["fine_grid"]()
+    scan = synthetic_scan(fine, rng, n_points)
+    fpb = pz.pillarize(torch.as_tensor(scan, device=device),
+                       pz.PillarGeometry.from_config(fine),
+                       fine.max_points_voxel, fine.max_voxels)
+    out["fine_grid_pillarize"] = earliest_pillars_kept(scan, fine, fpb)
+    return out
+
+
+def loss_scaling(cfg, sd, rng) -> dict:
+    """Phase 26: kitti_sem B=2 bf16 'affine' training with loss scaling:
+    one scaled step (K3, K5 and K6 once) against the unscaled step from the
+    same weights and batch (largest parameter difference printed), then a
+    forced overflow (scale at the float32 maximum, alpha 1000 and labels
+    10 off) that must change nothing but the scale, halved, and the step
+    count."""
+    points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
+                                              cfg.num_points)
+    step = train.make_train_step(cfg)
+    warm = train.create_train_state(cfg, 100, state_dict=sd,
+                                    loss_scaling=True)
+    step(warm, points, labels)                         # warm: cuDNN plans
+    plain = train.create_train_state(cfg, 100, state_dict=sd)
+    scaled = train.create_train_state(cfg, 100, state_dict=sd,
+                                      loss_scaling=True)
+    _, plain_loss = step(plain, points, labels)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, loss = step(scaled, points, labels)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches((K3, K5, K6), "loss_scaling")
+    for fn in (K3, K5, K6):
+        require(fn.launches == 1, f"{fn.__name__} launched {fn.launches} "
+                                  "times in one loss-scaled step")
+    ds = scaled.dynamic_scale
+    require(np.isfinite(float(loss)) and ds.fin_steps == 1
+            and ds.scale == 65536.0, f"scaled step: loss {float(loss)}, "
+            f"scale {ds.scale}, fin_steps {ds.fin_steps}")
+    a, b = params_of(scaled), params_of(plain)
+    diff = max(share_of_scale(a[k], b[k]) for k in a)
+
+    over_cfg = cfg.replace(alpha=1000.0)
+    over = train.create_train_state(over_cfg, 100, state_dict=sd,
+                                    loss_scaling=True)
+    top = float(np.finfo(np.float32).max)
+    over.dynamic_scale.scale = top
+    before = {k: v.clone() for k, v in over.model.state_dict().items()}
+    _, over_loss = train.make_train_step(over_cfg)(
+        over, points, np.asarray(labels) + 10.0)
+    changed = [k for k, v in over.model.state_dict().items()
+               if "num_batches" not in k and not torch.equal(v, before[k])]
+    half = float(np.float32(top) * np.float32(0.5))
+    require(not changed, f"skipped step changed {changed}")
+    require(over.step == 1 and over.tx.count == 0
+            and over.dynamic_scale.scale == half
+            and over.dynamic_scale.fin_steps == 0,
+            f"overflow step: step {over.step}, count {over.tx.count}, "
+            f"scale {over.dynamic_scale.scale}")
+    return {"launches": launches, "result": {
+        "phase": "loss_scaling", "card": card(), "fused_impl": cfg.fused_impl,
+        "compute_dtype": cfg.compute_dtype, "batch": TRAIN_BATCH,
+        "loss_scaled": float(loss), "loss_unscaled": float(plain_loss),
+        "params_max_diff_of_scale_vs_unscaled": diff, "step_ms": ms,
+        "launches": launches, "scale": ds.scale,
+        "overflow": {"loss": float(over_loss), "skipped": True,
+                     "scale_after": over.dynamic_scale.scale,
+                     "step": over.step, "update_count": over.tx.count}}}
+
+
+def flat_yaml(cfg, path: str) -> str:
+    """`cfg` as a YAML file in the reference's flat layout."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump({k: list(v) if isinstance(v, tuple) else v
+                        for k, v in dataclasses.asdict(cfg).items()
+                        if not isinstance(v, dict)}, f)
+    return path
+
+
+def cli_phase(cfg, gen_out: str, root: str, device) -> dict:
+    """Phase 27: the CLIs in-process on phase 22's generated pairs.
+    `train --impl affine --bf16 --epochs 1 -s --train_skip 1 --valid_skip
+    1` (K5 and K6 once a step, K3 once a step and once a validation batch,
+    K2 once a validation batch), `-e` (resumed: K3 and K2 once a
+    validation batch), `predict` from the checkpoint directory under a
+    YAML at the serving settings (K1, K3 and K2 once; elevation and labels
+    equal to the engine's), `convert_checkpoint` both ways bit-equal."""
+    from gndnet_tpu_torch.checkpoint import CheckpointManager, load_weights
+    from gndnet_tpu_torch.scripts import convert_checkpoint as convert_cli
+    from gndnet_tpu_torch.scripts import predict as predict_cli
+    from gndnet_tpu_torch.scripts import train as train_cli
+
+    data = os.path.join(root, "cli_data")
+    os.makedirs(data)
+    os.symlink(os.path.join(gen_out, "sequences"),
+               os.path.join(data, "training"))
+    work = os.path.join(root, "cli_run")
+    base = ["--config", "kitti_sem", "--data_dir", data, "--workdir", work,
+            "--train_skip", "1", "--valid_skip", "1", "--impl", "affine",
+            "--bf16"]
+    frames = EVAL_FRAMES
+    steps = frames // TRAIN_BATCH
+    batches = -(-frames // TRAIN_BATCH)
+    out = {"phase": "cli", "card": card(), "frames": frames,
+           "batch": TRAIN_BATCH}
+    launches = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = train_cli.main(base + ["--epochs", "1", "-s"])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    launches["cli_train"] = read_launches((K3, K5, K6, K2), "cli_train")
+    for fn, k in ((K5, steps), (K6, steps), (K3, steps + batches),
+                  (K2, batches)):
+        require(fn.launches == k, f"train CLI: {fn.__name__} launched "
+                                  f"{fn.launches} times, not {k}")
+    require(np.isfinite(hist["lowest_loss"]), f"train CLI {hist}")
+    ckpt_dir = os.path.join(work, "checkpoints")
+    require(CheckpointManager(ckpt_dir).steps() == [1], "train CLI steps")
+    reset_launches()
+    evaluated = train_cli.main(base + ["-e"])
+    launches["cli_evaluate"] = read_launches((K3, K2), "cli_evaluate")
+    for fn in (K3, K2):
+        require(fn.launches == batches, f"-e: {fn.__name__} launched "
+                                        f"{fn.launches} times")
+    d_valid = abs(evaluated["valid_loss"][-1] - hist["valid_loss"][-1])
+    require(d_valid <= 1e-4 * abs(hist["valid_loss"][-1]),
+            f"-e validation vs the trained run's: {d_valid}")
+    out["train"] = {"train_loss": hist["train_loss"],
+                    "valid_loss": hist["valid_loss"],
+                    "evaluate_valid_loss": evaluated["valid_loss"],
+                    "steps": steps}
+
+    serving = serving_config(SHIPPED["kitti_sem"]())
+    yaml_path = flat_yaml(serving, os.path.join(root, "serving.yaml"))
+    scan = os.path.join(gen_out, "sequences", "00", "reduced_velo",
+                        "000000.npy")
+    reset_launches()
+    elev, labels = predict_cli.main(["--config", yaml_path, "--pcl", scan,
+                                     "--resume", ckpt_dir])
+    launches["cli_predict"] = read_launches((K1, K3, K2), "cli_predict")
+    for fn in (K1, K3, K2):
+        require(fn.launches == 1, f"predict: {fn.__name__} launched "
+                                  f"{fn.launches} times, not once")
+    engine = GroundInferenceEngine(serving, load_weights(ckpt_dir),
+                                   device=device)
+    want_elev, want_labels = engine.infer(predict_cli.load_cloud(
+        scan, serving.input_features, serving.lidar_height,
+        serving.shift_cloud))
+    require(np.array_equal(elev, want_elev)
+            and np.array_equal(labels, want_labels),
+            "predict CLI vs the engine")
+    out["predict"] = {"points": int(labels.shape[0]),
+                      "ground_share": float((labels == 0).mean()),
+                      "elevation_range": [float(elev.min()),
+                                          float(elev.max())]}
+
+    src = os.path.join(ckpt_dir, "checkpoint.pth.tar")
+    pth = os.path.join(root, "converted.pth.tar")
+    back = os.path.join(root, "converted_dir")
+    convert_cli.main(["--config", "kitti_sem", "--from-dir", ckpt_dir,
+                      "--to-torch", pth])
+    convert_cli.main(["--config", "kitti_sem", "--from-torch", pth,
+                      "--to-dir", back])
+    first = torch.load(src, weights_only=False)["state_dict"]
+    for ckpt in (torch.load(pth, weights_only=False),
+                 CheckpointManager(back).restore()):
+        require(ckpt["state_dict"].keys() == first.keys() and all(
+            torch.equal(ckpt["state_dict"][k], v) for k, v in first.items()),
+            "convert_checkpoint is not bit-equal")
+    out["convert_checkpoint"] = {"tensors": len(first), "bit_equal": True}
+    out["launches"] = launches
+    return {"launches": launches, "result": out}
+
+
 REPLACES = {
     "cluster_radix_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
                                "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
@@ -1984,7 +2354,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-24 on `device`; returns the kernels line's entries."""
+    """Phases 3-27 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -2097,6 +2467,13 @@ def run(cfg, n_points: int, device) -> list:
         trained = train_augmented(gen["raw"], root, device)
         paths["train_augmented"] = trained["launches"]
         emit(trained["result"])
+        emit(pillar_path(rng, n_points, device))
+        scaled = loss_scaling(cfg, sd, rng)
+        paths["loss_scaling"] = scaled["launches"]
+        emit(scaled["result"])
+        clis = cli_phase(cfg, gen["out"], root, device)
+        paths.update(clis["launches"])
+        emit(clis["result"])
 
     kernels = []
     for row in rows:

@@ -16,6 +16,13 @@ from __future__ import annotations
 import torch
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with `jnp.abs`'s gradient: +1 at x == 0 (torch's `abs` gives 0
+    there, and a flat stretch of the elevation map has second differences
+    of exactly 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _huber(d: torch.Tensor, beta: float) -> torch.Tensor:
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
 
@@ -36,7 +43,7 @@ def spatial_smooth_loss(pred_map: torch.Tensor) -> torch.Tensor:
     dx, dy = gradient(pred_map)
     dx2, dxdy = gradient(dx)
     dydx, dy2 = gradient(dy)
-    loss = sum(t.abs().mean(dim=(1, 2)) for t in (dx2, dxdy, dydx, dy2))
+    loss = sum(_abs(t).mean(dim=(1, 2)) for t in (dx2, dxdy, dydx, dy2))
     return loss.mean()
 
 

@@ -1,8 +1,13 @@
-"""GroundEstimatorNet: raw scan -> elevation map, the fused path.
+"""GroundEstimatorNet: scan -> elevation map, by two paths.
 
-Counterpart of `gndnet_tpu.models.gndnet.GroundEstimatorNet` (setup and
-`fused` with its three frontends; reference model.py:13-42).  The module
-tree holds the reference's parameter names (`voxel_feature_extractor.*`,
+Counterpart of `gndnet_tpu.models.gndnet.GroundEstimatorNet` (reference
+model.py:13-42): `forward(voxels, coors, num_points, mask)` is the
+reference-style path on materialised pillars (`ops.pillarize.
+pillarize_batch`), decorate -> the PFN stack on (B*M, P, D) -> scatter ->
+SegNet, which runs every configuration (a PFN of any depth, use_norm
+training, nz > 1 grids); `fused(points)` is the fast path on raw points
+with its three frontends (a single PFN layer).  The module tree holds the
+reference's parameter names (`voxel_feature_extractor.*`,
 `encoder_decoder.*`), so a reference state dict, or
 `weights.state_dict_from_flax` of JAX variables, loads unchanged.
 
@@ -21,6 +26,7 @@ from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.models.pfn import PillarFeatureNet
 from gndnet_tpu_torch.models.segnet import SegnetGndEst, no_tf32
 from gndnet_tpu_torch.ops import pillarize as pz
+from gndnet_tpu_torch.ops.scatter import scatter_pillars_to_canvas
 
 
 def compute_dtype(cfg: GndNetConfig) -> torch.dtype:
@@ -48,6 +54,49 @@ class GroundEstimatorNet(nn.Module):
                 precision=cfg.matmul_precision)
         self.to(self.device)
         self.eval()
+
+    def _full_f32(self) -> bool:
+        return (self.cfg.matmul_precision == "highest"
+                and self.device.type == "cuda")
+
+    def pillar_canvas(self, voxels: torch.Tensor, coors: torch.Tensor,
+                      num_points: torch.Tensor, mask: torch.Tensor,
+                      train: bool = False) -> torch.Tensor:
+        """`pillarize_batch`'s fields -> (B, ny, nx, C) canvas: decorate,
+        the PFN stack on (B*M, P, D) (in training with batch statistics
+        over the valid pillars' rows), padding pillars zeroed, scatter."""
+        cfg, dev = self.cfg, self.device
+        voxels = torch.as_tensor(voxels, dtype=torch.float32, device=dev)
+        coors = torch.as_tensor(coors, device=dev)
+        num_points = torch.as_tensor(num_points, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        decorated = pz.decorate_pillars(
+            voxels, num_points, coors[..., [2, 1]], self.geom,
+            cfg.max_points_voxel, with_distance=cfg.with_distance)
+        b, m, p, d = decorated.shape
+        with no_tf32(self._full_f32()):
+            feats = self.voxel_feature_extractor(
+                decorated.reshape(b * m, p, d), train=train,
+                pillar_mask=mask.reshape(b * m)).reshape(b, m, -1)
+        # the reference scatters its padding pillars too (zero rows at
+        # cell 0 before any real pillar); they are masked here
+        feats = torch.where(mask[..., None], feats, 0.0)
+        return scatter_pillars_to_canvas(feats, coors, mask, self.geom.ny,
+                                         self.geom.nx)
+
+    def forward(self, voxels: torch.Tensor, coors: torch.Tensor,
+                num_points: torch.Tensor, mask: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """Reference-style forward on `pillarize_batch`'s fields: voxels
+        (B, M, P, F), zyx coors (B, M, 3), num_points (B, M), mask (B, M)
+        -> (B, ny, nx) float32 elevation.  train=False serves under
+        `torch.no_grad()`; train=True records the graph and runs batch norm
+        on batch statistics (the PFN's over the valid pillars' rows),
+        updating the running ones."""
+        with contextlib.nullcontext() if train else torch.no_grad():
+            canvas = self.pillar_canvas(voxels, coors, num_points, mask,
+                                        train=train)
+            return self.encoder_decoder(canvas, train=train)[..., 0]
 
     def canvas(self, points: torch.Tensor, train: bool = False,
                reference: bool = False) -> torch.Tensor:
@@ -81,8 +130,6 @@ class GroundEstimatorNet(nn.Module):
         cap = cfg.max_points_voxel
         frontend = dict(with_distance=cfg.with_distance,
                         exact_point_cap=cfg.exact_point_cap)
-        full_f32 = (cfg.matmul_precision == "highest"
-                    and self.device.type == "cuda")
         if impl == "sorted":
             decorated, kept, sorted_cell, cell_count = \
                 pz.fused_frontend_sorted(flat, ctx, self.geom, cap,
@@ -90,7 +137,7 @@ class GroundEstimatorNet(nn.Module):
         else:
             decorated, kept, cell_count = pz.fused_frontend(
                 flat, ctx, self.geom, cap, **frontend)
-        with no_tf32(full_f32):
+        with no_tf32(self._full_f32()):
             if impl == "bn_train":
                 # the reference's BatchNorm1d divisor: occupied cells per
                 # scan, capped at max_voxels, times max_points

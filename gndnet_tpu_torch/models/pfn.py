@@ -9,8 +9,9 @@ ReLU over a flat (N, D) decorated point stream, the PFN of the scatter and
 sorted impls; `activate_flat_bn_train` is its use_norm training form, with
 the batch statistics of the reference's padded pillar tensor derived from
 the flat stream; `effective_affine` gives the eval-mode layer as one affine
-map, which the affine canvas consumes.  The per-pillar forward of the
-reference-style path is not ported.
+map, which the affine canvas consumes.  `forward` is the per-pillar layer
+of the reference-style path on (M, P, D) pillars, any depth of stack, with
+use_norm's batch statistics over the valid pillars' rows.
 
 The linear is `x @ kernel (+ bias)` in float32, as flax's Dense computes
 it; batch norm follows flax's arithmetic and its running update (momentum
@@ -37,6 +38,7 @@ class PFNLayer(nn.Module):
                  use_norm: bool = False, last_layer: bool = False):
         super().__init__()
         self.use_norm = use_norm
+        self.last_layer = last_layer
         units = out_channels if last_layer else out_channels // 2
         self.linear = nn.Linear(in_channels, units, bias=not use_norm)
         if use_norm:
@@ -97,6 +99,38 @@ class PFNLayer(nn.Module):
                                           total_rows)
         return torch.relu(z * inv + shift), torch.relu(shift)
 
+    def forward(self, x: torch.Tensor, train: bool = False,
+                pillar_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(M, P, D) pillars -> (M, 1, units) if last, else (M, P, 2 *
+        units): [activations, their max over the pillar's rows].
+
+        use_norm in training normalises with batch statistics over the rows
+        of the pillars `pillar_mask` (M,) flags (a pillar's padding rows
+        included, as in the reference's dynamic tensor), divided by
+        n_valid * P; without a mask, over every row.  The max is
+        `torch.amax`, whose gradient splits evenly among tied rows as
+        `jnp.max`'s does (padding rows tie at activate(0) in every non-full
+        pillar)."""
+        if self.use_norm and train:
+            z = self.dense(x).float()
+            if pillar_mask is None:
+                zm = z
+                rows = torch.tensor(float(z.shape[0] * z.shape[1]),
+                                    device=z.device)
+            else:
+                zm = torch.where(pillar_mask[:, None, None], z, 0.0)
+                rows = pillar_mask.float().sum() * z.shape[1]
+            inv, shift = self.bn_train_affine(zm.sum(dim=(0, 1)),
+                                              (zm * zm).sum(dim=(0, 1)),
+                                              rows)
+            x = torch.relu(z * inv + shift).to(x.dtype)
+        else:
+            x = self.activate_flat(x)
+        x_max = torch.amax(x, dim=1, keepdim=True)
+        if self.last_layer:
+            return x_max
+        return torch.cat([x, x_max.expand_as(x)], dim=2)
+
     def effective_affine(self):
         """Eval-mode (kernel (in, units), bias (units,)) of Linear (+ folded
         running-stat BN): y = scale * (W x - mean) / sqrt(var + eps) + bias.
@@ -121,3 +155,11 @@ class PillarFeatureNet(nn.Module):
             PFNLayer(widths[i], widths[i + 1], use_norm,
                      last_layer=(i == len(num_filters) - 1))
             for i in range(len(num_filters)))
+
+    def forward(self, decorated: torch.Tensor, train: bool = False,
+                pillar_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Decorated (M, P, D) pillars -> (M, C_out) pillar features."""
+        x = decorated
+        for layer in self.pfn_layers:
+            x = layer(x, train=train, pillar_mask=pillar_mask)
+        return x.squeeze(1)

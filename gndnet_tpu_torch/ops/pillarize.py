@@ -1,7 +1,12 @@
-"""Binning and the three fused canvas frontends.
+"""Binning, the reference-style pillars and the three fused canvas
+frontends.
 
 Counterparts of `gndnet_tpu.ops.pillarize`: `PillarGeometry`,
-`PointContext`, `_bin`, `bin_points`, `bin_points_batch`, `point_ranks`,
+`PointContext`, `_bin`, `bin_points`, `bin_points_batch`, `point_ranks`;
+the reference-style path's `PillarBatch`, `PointRanks`, `count_and_rank`,
+`pillarize`, `pillarize_batch` and `decorate_pillars` (materialised
+(pillars, points) tensors, any nz), with `decorate_points` and
+`scatter_max_canvas` over the flat stream;
 `fused_frontend` and `canvas_from_activations` (the 'scatter' impl),
 `fused_frontend_sorted` and `canvas_from_sorted_activations` (the 'sorted'
 impl), `affine_pfn_weights` and `affine_canvas` (the 'affine' impl).
@@ -81,6 +86,15 @@ class PointContext(NamedTuple):
     batch: int               # scan count folded into the flat stream
 
 
+def exact_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded as IEEE division rounds it, on every device.  PyTorch
+    divides a CUDA tensor by a Python scalar as a product with the
+    scalar's reciprocal, which moves a point on a cell's edge into the
+    next cell (0.4 m cells); a 0-dim tensor on the tensor's device divides
+    exactly, and a fill makes it without a host copy (graph capture)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def _bin(points: torch.Tensor, geom: PillarGeometry):
     """Per-axis floor binning with range check (reference
     utils/point_cloud_ops.py:33-38): c = floor((p - lo) / v), invalid when
@@ -88,8 +102,8 @@ def _bin(points: torch.Tensor, geom: PillarGeometry):
     out = []
     valid = None
     for k in range(3):
-        c = torch.floor((points[..., k] - geom.pc_range[k])
-                        / geom.voxel_size[k])
+        c = torch.floor(exact_div(points[..., k] - geom.pc_range[k],
+                                  geom.voxel_size[k]))
         ok = (c >= 0) & (c < geom.grid_size[k])
         valid = ok if valid is None else (valid & ok)
         out.append(c.to(torch.int32))
@@ -155,6 +169,142 @@ def point_ranks(ctx: PointContext) -> torch.Tensor:
     return stream_ranks(ctx.cell)
 
 
+# ---------------------------------------------------------------------------
+# the reference-style pillar path: materialised (pillars, points) tensors
+# ---------------------------------------------------------------------------
+
+class PillarBatch(NamedTuple):
+    """Fixed-shape pillarization result (reference-style API)."""
+
+    voxels: torch.Tensor      # (max_voxels, max_points, F) float
+    coors: torch.Tensor       # (max_voxels, 3) int32, zyx order
+    num_points: torch.Tensor  # (max_voxels,) int32, min(population, cap)
+    mask: torch.Tensor        # (max_voxels,) bool, True for real pillars
+    n_pillars: torch.Tensor   # () int32, number of real pillars
+
+
+class PointRanks(NamedTuple):
+    rank: torch.Tensor        # (M,) int32 occurrence index inside its cell
+    kept: torch.Tensor        # (M,) bool valid & rank < max_points
+    cell_count: torch.Tensor  # (num_segments,) int32 kept points per cell
+    raw_count: torch.Tensor   # (num_segments,) int32 valid points per cell
+
+
+def _segment_count(ctx: PointContext, flags: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(ctx.num_segments, dtype=torch.int32,
+                       device=flags.device).index_add_(
+        0, ctx.cell.long(), flags.to(torch.int32))
+
+
+def count_and_rank(ctx: PointContext, max_points: int) -> PointRanks:
+    """Rank, kept mask (the first `max_points` valid points of each cell
+    in stream order) and per-segment kept and raw counts."""
+    rank = point_ranks(ctx)
+    kept = ctx.valid & (rank < max_points)
+    return PointRanks(rank, kept, _segment_count(ctx, kept),
+                      _segment_count(ctx, ctx.valid))
+
+
+def pillarize_batch(points_b: torch.Tensor, geom: PillarGeometry,
+                    max_points: int, max_voxels: int) -> PillarBatch:
+    """Reference-style fixed-shape pillarization of B scans (B, N, F); every
+    field has a leading batch axis.
+
+    Scan b's pillars take slots 0.. in the order their cells are first
+    touched in its point stream (the reference's voxel index,
+    utils/point_cloud_ops.py:41-48; the out-of-range points take no slot).
+    A pillar holds its cell's first `max_points` points in stream order;
+    pillars past `max_voxels` are dropped whole, the earliest kept.
+    `coors` are zyx, and `coors` and `num_points` are zero on padding
+    slots.  Works on any nz.  The batch is binned once into one segment
+    space; the first touches, ranks and slot orders are taken per scan."""
+    b, n, f = points_b.shape
+    dev = points_b.device
+    ctx = bin_points_batch(points_b, geom)
+    ranks = count_and_rank(ctx, max_points)
+    c3 = geom.num_cells_3d
+    item = torch.arange(b, dtype=torch.int32,
+                        device=dev).repeat_interleave(n)
+    local = torch.where(ctx.valid, ctx.cell - item * c3, c3).long()
+    # each scan's cells [0, c3] (c3: its out-of-range segment) by first
+    # touch; untouched cells and the out-of-range segment sort last, in id
+    # order, as a stable argsort of the JAX package leaves them
+    big = 2 * n + 1
+    iota = torch.arange(n, dtype=torch.int32, device=dev).repeat(b)
+    first = torch.full((b, c3 + 1), big, dtype=torch.int32,
+                       device=dev).scatter_reduce(
+        1, local.reshape(b, n), torch.where(ctx.valid, iota, big)
+        .reshape(b, n), "amin", include_self=True)
+    first[:, c3] = big
+    by_creation = torch.argsort(first, dim=1, stable=True)   # slot -> cell
+    creation = torch.empty_like(by_creation).scatter_(
+        1, by_creation, torch.arange(c3 + 1, device=dev).expand(b, -1))
+    slot = creation.reshape(-1)[
+        local + item.long() * (c3 + 1)]                        # per point
+    flat = (item.long() * max_voxels + slot) * max_points + ranks.rank
+    drop = b * max_voxels * max_points
+    flat = torch.where(ranks.kept & (slot < max_voxels), flat, drop)
+    voxels = torch.zeros((drop + 1, f), dtype=points_b.dtype, device=dev)
+    voxels[flat] = points_b.reshape(b * n, f)
+    voxels = voxels[:drop].reshape(b, max_voxels, max_points, f)
+
+    if max_voxels > c3 + 1:
+        # more slots than cells: pad with the out-of-range segment
+        by_creation = torch.cat([by_creation, torch.full(
+            (b, max_voxels - c3 - 1), c3, dtype=by_creation.dtype,
+            device=dev)], dim=1)
+    slot_cells = by_creation[:, :max_voxels]
+    counts = ranks.cell_count[:b * c3].reshape(b, c3)
+    counts = torch.cat([counts, torch.zeros((b, 1), dtype=counts.dtype,
+                                            device=dev)], dim=1)
+    slot_counts = torch.gather(counts, 1, slot_cells)
+    n_pillars = torch.clamp((counts[:, :c3] > 0).sum(dim=1),
+                            max=max_voxels).to(torch.int32)
+    mask = (torch.arange(max_voxels, device=dev)[None, :]
+            < n_pillars[:, None])
+    nx, ny = geom.nx, geom.ny
+    coors = torch.stack([slot_cells // (nx * ny), (slot_cells // nx) % ny,
+                         slot_cells % nx], dim=-1).to(torch.int32)
+    coors = torch.where(mask[..., None], coors, 0)
+    num_points = torch.where(mask, slot_counts, 0).to(torch.int32)
+    return PillarBatch(voxels, coors, num_points, mask, n_pillars)
+
+
+def pillarize(points: torch.Tensor, geom: PillarGeometry, max_points: int,
+              max_voxels: int) -> PillarBatch:
+    """`pillarize_batch` of one scan (N, F): the fields without the batch
+    axis."""
+    out = pillarize_batch(points[None], geom, max_points, max_voxels)
+    return PillarBatch(*(x[0] for x in out))
+
+
+def decorate_pillars(voxels: torch.Tensor, num_points: torch.Tensor,
+                     coors_xy: torch.Tensor, geom: PillarGeometry,
+                     max_points: int,
+                     with_distance: bool = False) -> torch.Tensor:
+    """PFN decoration of materialised pillars (..., P, F), on (M, P, F) or
+    (B, M, P, F) (reference modules/pointpillars.py:115-140): [p, xyz - the
+    mean of the pillar's `num_points` rows (sum / max(n, 1): padding rows
+    are zero), xy - the cell centre from `coors_xy` (..., 2) (x, y) (,
+    |xyz|)], then the padding rows zeroed.  Returns (..., P, F + 5 [+1])."""
+    ftype = voxels.dtype
+    denom = torch.clamp(num_points, min=1).to(ftype)[..., None, None]
+    xyz = voxels[..., :3]
+    mean = xyz.sum(dim=-2, keepdim=True) / denom
+    vx, vy = geom.voxel_size[0], geom.voxel_size[1]
+    cx = coors_xy[..., 0].to(ftype)[..., None] * vx + (
+        vx / 2.0 + geom.pc_range[0])
+    cy = coors_xy[..., 1].to(ftype)[..., None] * vy + (
+        vy / 2.0 + geom.pc_range[1])
+    feats = [voxels, xyz - mean,
+             torch.stack([voxels[..., 0] - cx, voxels[..., 1] - cy], dim=-1)]
+    if with_distance:
+        feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+    rows = torch.arange(max_points, device=voxels.device)
+    pad = (rows < num_points[..., None]).to(ftype)[..., None]
+    return torch.cat(feats, dim=-1) * pad
+
+
 def _decorate(pts, cx, cy, mean_pp, keptf, geom, with_distance):
     """[p, xyz - cell mean, xy - cell centre (, |xyz|)] * kept, float32."""
     xyz = pts[:, :3]
@@ -194,6 +344,24 @@ def fused_frontend(points: torch.Tensor, ctx: PointContext,
                           with_distance)
     cell_count = stats[:ctx.num_segments - 1, 3].to(torch.int32)
     return decorated, kept, cell_count
+
+
+def decorate_points(points: torch.Tensor, ctx: PointContext,
+                    ranks: PointRanks, geom: PillarGeometry,
+                    with_distance: bool = False):
+    """`decorate_pillars`' features over the flat (M, F) stream: cluster
+    means from a masked segment sum over each cell's kept points, centre
+    offsets from the point's own cell.  Returns (decorated (M, D), rows of
+    dropped points zero; kept (M,) bool)."""
+    keptf = ranks.kept.to(points.dtype)[:, None]
+    cell = ctx.cell.long()
+    sums = torch.zeros((ctx.num_segments, 3), dtype=points.dtype,
+                       device=points.device).index_add_(
+        0, cell, points[:, :3] * keptf)
+    counts = torch.clamp(ranks.cell_count, min=1).to(points.dtype)
+    mean_pp = sums[cell] / counts[cell][:, None]
+    return (_decorate(points, ctx.cx, ctx.cy, mean_pp, keptf, geom,
+                      with_distance), ranks.kept)
 
 
 def _finish_canvas(rows, cell_count, max_points, pad_floor, batch, geom):
@@ -244,6 +412,20 @@ def canvas_from_activations(point_feats: torch.Tensor, ctx: PointContext,
         include_self=True)
     return _finish_canvas(canvas[:ctx.num_segments - 1], cell_count,
                           max_points, pad_floor, ctx.batch, geom)
+
+
+def scatter_max_canvas(point_feats: torch.Tensor, ctx: PointContext,
+                       ranks: PointRanks, geom: PillarGeometry,
+                       max_points: int,
+                       pad_floor: torch.Tensor | None = None) -> torch.Tensor:
+    """`canvas_from_activations` on `count_and_rank`'s kept mask and
+    counts: the (B, ny, nx, C) per-cell max of the kept points' features,
+    floored at `pad_floor` where a cell holds fewer than `max_points`
+    points, zero where it holds none.  Requires nz == 1."""
+    return canvas_from_activations(
+        point_feats, ctx, ranks.kept,
+        ranks.cell_count[:ctx.num_segments - 1], geom, max_points,
+        pad_floor=pad_floor)
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gndnet_tpu_torch.ops.pillarize import stream_ranks
+from gndnet_tpu_torch.ops.pillarize import exact_div, stream_ranks
 
 
 def _cell_indices(points: torch.Tensor, grid_range, cell_size: float):
     """floor((xy - grid_min) / cell) as int32 (reference utils.py:204-207)."""
-    ix = torch.floor((points[..., 0] - grid_range[0]) / cell_size)
-    iy = torch.floor((points[..., 1] - grid_range[1]) / cell_size)
+    ix = torch.floor(exact_div(points[..., 0] - grid_range[0], cell_size))
+    iy = torch.floor(exact_div(points[..., 1] - grid_range[1], cell_size))
     return ix.to(torch.int32), iy.to(torch.int32)
 
 

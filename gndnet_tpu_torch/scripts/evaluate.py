@@ -17,7 +17,8 @@ def main(argv=None):
     p.add_argument("--config", default="kitti_sem")
     p.add_argument("--data_dir", required=True,
                    help="sequence dir with velodyne/ and labels/")
-    p.add_argument("--resume", default="", help=".pth.tar or orbax dir")
+    p.add_argument("--resume", default="", help="a .pth.tar or a "
+                   "CheckpointManager directory")
     p.add_argument("--threshold", type=float, default=0.0,
                    help="segmentation threshold (reference eval uses 0)")
     p.add_argument("--corrected", action="store_true",
@@ -36,14 +37,9 @@ def main(argv=None):
     cfg = load_config(args.config)
     state_dict = init_state_dict(cfg)
     if args.resume:
-        if not args.resume.endswith((".pth.tar", ".pth")):
-            raise NotImplementedError(
-                "orbax checkpoint directories (the JAX package's "
-                "CheckpointManager) are ROADMAP.md queue 1, item 9; pass a "
-                ".pth.tar")
-        from gndnet_tpu_torch.checkpoint import load_torch_checkpoint
+        from gndnet_tpu_torch.checkpoint import load_weights
 
-        state_dict = load_torch_checkpoint(args.resume, cfg)["state_dict"]
+        state_dict = load_weights(args.resume, cfg)
 
     result = evaluate_semantic_kitti(
         cfg, state_dict, args.data_dir, threshold=args.threshold,

@@ -1,13 +1,16 @@
 """Training: the train and eval steps and the epoch loop.
 
-Counterpart of `gndnet_tpu.train` for single-device fused training:
-optionally the on-device augmentation of the batch
-(`data.augmentation.device_augment`), then
-`GroundEstimatorNet.fused(points, train=True)` on the raw (B, N, F) batch
-(the affine canvas with K4/K5 forward and K6 backward, or the scatter
-canvas; a use_norm PFN on batch statistics through the scatter frontend;
-SegNet with batch statistics), `losses.total_loss`, then SGD.  The
-'sorted' impl has no gradient and raises.
+Counterpart of `gndnet_tpu.train` for single-device training: optionally
+the on-device augmentation of the batch (`data.augmentation.
+device_augment`), then `GroundEstimatorNet.fused(points, train=True)` on
+the raw (B, N, F) batch (the affine canvas with K4/K5 forward and K6
+backward, or the scatter canvas; a use_norm PFN on batch statistics
+through the scatter frontend; SegNet with batch statistics) or, with
+`use_pillar_path`, `pillarize_batch` and the reference-style `forward`
+(any PFN depth), `losses.total_loss`, then SGD.  The 'sorted' impl has no
+gradient and raises.  With loss scaling (`DynamicScale`) a step whose
+gradients are not finite changes nothing but the scale and the step
+count.
 
 Optimizer parity: the JAX package's optax chain add_decayed_weights ->
 trace(momentum) -> scale_by_schedule(-step_lr) is torch SGD(momentum,
@@ -23,18 +26,20 @@ import os
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from gndnet_tpu_torch import losses
 from gndnet_tpu_torch._ext import resolve_device
-from gndnet_tpu_torch.checkpoint import (latest_checkpoint,
-                                         restore_checkpoint, save_checkpoint)
+from gndnet_tpu_torch.checkpoint import (CheckpointManager, checkpoint_dict,
+                                         restore_checkpoint)
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.data import augmentation as aug
 from gndnet_tpu_torch.data.provider import (GroundDataset, iterate_batches,
                                             prefetch_to_device)
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.models.segnet import no_tf32
+from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.utils.logging import AverageMeter, setup_logger
 from gndnet_tpu_torch.utils.schedules import step_lr
 from gndnet_tpu_torch.weights import init_state_dict
@@ -94,17 +99,78 @@ def make_optimizer(cfg: GndNetConfig, params,
     return Optimizer(cfg, params, steps_per_epoch)
 
 
+F32_TINY = float(np.finfo(np.float32).tiny)
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass
+class DynamicScale:
+    """Dynamic loss scaling with flax's `DynamicScale` rule and defaults
+    (flax.training.dynamic_scale): the loss is multiplied by `scale`
+    before the backward and the gradients divided by it in float32; after
+    `growth_interval` finite steps in a row the scale grows by
+    `growth_factor` (up to the float32 maximum), a step with a non-finite
+    gradient backs it off by `backoff_factor` (down to `minimum_scale`),
+    and either resets the run of finite steps.  The scale is kept a
+    float32 value, as flax keeps it."""
+
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    fin_steps: int = 0
+    scale: float = 65536.0
+    minimum_scale: float | None = F32_TINY
+
+    def unscale_(self, params) -> bool:
+        """Divide every .grad of `params` by the scale, in place; True when
+        all of them are finite (one host sync)."""
+        grads = [p.grad for p in params if p.grad is not None]
+        finite = torch.ones((), dtype=torch.bool, device=grads[0].device)
+        for g in grads:
+            g.copy_(g.float() / self.scale)
+            finite &= torch.isfinite(g).all()
+        return bool(finite)
+
+    def update(self, finite: bool) -> None:
+        grow = self.fin_steps == self.growth_interval
+        if not finite:
+            scale = _f32(self.scale * self.backoff_factor)
+            if self.minimum_scale is not None:
+                scale = max(scale, self.minimum_scale)
+            self.scale = scale
+        elif grow:
+            self.scale = _f32(min(self.scale * self.growth_factor, F32_MAX))
+        self.fin_steps = 0 if grow or not finite else self.fin_steps + 1
+
+
 @dataclasses.dataclass
 class TrainState:
-    """The model (parameters and batch-norm statistics) and its optimizer
-    (momentum buffers and the step count that sets the schedule)."""
+    """The model (parameters and batch-norm statistics), its optimizer
+    (momentum buffers and the count of updates, which sets the schedule),
+    the count of steps taken (which keys augmentation; it moves on a step
+    that loss scaling skips, the update count does not) and the optional
+    loss scale."""
 
     model: GroundEstimatorNet
     tx: Optimizer
+    step: int = 0
+    dynamic_scale: DynamicScale | None = None
 
-    @property
-    def step(self) -> int:
-        return self.tx.count
+    def state_dict(self) -> dict:
+        return {**self.tx.state_dict(), "step": self.step,
+                "dynamic_scale": (None if self.dynamic_scale is None
+                                  else dataclasses.asdict(
+                                      self.dynamic_scale))}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.tx.load_state_dict(sd)
+        self.step = int(sd.get("step", sd["count"]))
+        ds = sd.get("dynamic_scale")
+        self.dynamic_scale = None if ds is None else DynamicScale(**ds)
 
 
 def create_train_state(cfg: GndNetConfig, steps_per_epoch: int,
@@ -114,16 +180,14 @@ def create_train_state(cfg: GndNetConfig, steps_per_epoch: int,
     """A fresh state on `device` (the card unless device='cpu'): weights
     from `state_dict` (the reference's names, e.g.
     `weights.state_dict_from_flax` of JAX variables) or from
-    `weights.init_state_dict(cfg, seed)`."""
-    if loss_scaling:
-        raise NotImplementedError(
-            "loss scaling (the JAX package's DynamicScale) is ROADMAP.md "
-            "queue 1, item 6, 'Loss scaling'")
+    `weights.init_state_dict(cfg, seed)`.  `loss_scaling` adds a
+    `DynamicScale` with flax's defaults."""
     model = GroundEstimatorNet(cfg, device=device)
     model.load_state_dict(init_state_dict(cfg, seed) if state_dict is None
                           else state_dict)
     return TrainState(model, make_optimizer(cfg, model.parameters(),
-                                            steps_per_epoch))
+                                            steps_per_epoch),
+                      dynamic_scale=DynamicScale() if loss_scaling else None)
 
 
 def loss_fn(cfg: GndNetConfig) -> Callable:
@@ -137,19 +201,37 @@ def _as_batch(state: TrainState, points, labels):
             torch.as_tensor(labels, dtype=torch.float32, device=dev))
 
 
+def _predict(model: GroundEstimatorNet, cfg: GndNetConfig, points,
+             train: bool, use_pillar_path: bool, reference: bool = False):
+    if not use_pillar_path:
+        return model.fused(points, train=train, reference=reference)
+    pb = pz.pillarize_batch(points, model.geom, cfg.max_points_voxel,
+                            cfg.max_voxels)
+    return model(pb.voxels, pb.coors, pb.num_points, pb.mask, train=train)
+
+
 def make_train_step(cfg: GndNetConfig, augment: bool = False,
-                    reference: bool = False) -> Callable:
+                    reference: bool = False,
+                    use_pillar_path: bool = False) -> Callable:
     """(state, points (B, N, F), labels (B, ny, nx)) -> (state, loss): one
-    fused forward with batch statistics, backward, and optimizer step; the
-    state is updated in place.  The loss is returned on the device (no
-    host sync).  At float32 / 'highest' on the card TF32 stays off through
-    the backward too.  `reference=True` runs the plain version of every
-    kernel stage.
+    forward with batch statistics, backward, and optimizer step; the state
+    is updated in place.  The loss is returned on the device (no host sync
+    without loss scaling).  At float32 / 'highest' on the card TF32 stays
+    off through the backward too.  `reference=True` runs the plain version
+    of every kernel stage.  `use_pillar_path=True` takes the
+    reference-style path (`pillarize_batch`, then `forward`), which runs
+    every configuration.
 
     `augment=True` first rotates and lifts the batch and its labels on the
     device (`data.augmentation`), drawn from a generator seeded from
-    (AUGMENT_SEED, state.step): a fresh draw every optimizer step, the same
-    draw for the same step (the JAX package's fold_in(PRNGKey(0), step))."""
+    (AUGMENT_SEED, state.step): a fresh draw every step, the same draw for
+    the same step (the JAX package's fold_in(PRNGKey(0), step)).
+
+    With `state.dynamic_scale` the backward runs on the scaled loss and
+    the gradients are unscaled; when one is not finite the step keeps the
+    parameters, momentum, update count and batch-norm statistics (put back
+    as they were before the forward), and the scale backs off.  The
+    returned loss is then scaled loss / scale, as flax returns it."""
     total = loss_fn(cfg)
 
     def step(state: TrainState, points, labels):
@@ -158,25 +240,44 @@ def make_train_step(cfg: GndNetConfig, augment: bool = False,
             points, labels = aug.device_augment(
                 points, labels, aug.augment_generator(
                     AUGMENT_SEED, state.step, points.device), cfg)
-        model = state.model
+        model, ds = state.model, state.dynamic_scale
+        # batch norm updates its running statistics during the forward
+        saved = ({k: v.clone() for k, v in model.named_buffers()}
+                 if ds is not None else None)
         with no_tf32(model.encoder_decoder.full_f32(model.device)):
-            loss = total(model.fused(points, train=True,
-                                     reference=reference), labels)
+            loss = total(_predict(model, cfg, points, True, use_pillar_path,
+                                  reference), labels)
             state.tx.zero_grad()
+            if ds is not None:
+                scale = ds.scale
+                loss = loss * scale
             loss.backward()
+        state.step += 1
+        if ds is not None:
+            finite = ds.unscale_(state.tx.params)
+            loss = loss / scale
+            ds.update(finite)
+            if not finite:
+                with torch.no_grad():
+                    for k, v in model.named_buffers():
+                        v.copy_(saved[k])
+                return state, loss.detach()
         state.tx.step()
         return state, loss.detach()
 
     return step
 
 
-def make_eval_step(cfg: GndNetConfig) -> Callable:
-    """(state, points, labels) -> loss with running statistics, no grad."""
+def make_eval_step(cfg: GndNetConfig,
+                   use_pillar_path: bool = False) -> Callable:
+    """(state, points, labels) -> loss with running statistics, no grad;
+    `use_pillar_path` as in `make_train_step`."""
     total = loss_fn(cfg)
 
     def step(state: TrainState, points, labels):
         points, labels = _as_batch(state, points, labels)
-        return total(state.model.fused(points), labels)
+        return total(_predict(state.model, cfg, points, False,
+                              use_pillar_path), labels)
 
     return step
 
@@ -207,10 +308,11 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
                        dp: int = 1, sp: int = 1, logger=None,
                        device=None) -> dict:
     """The reference's main loop (training.py:284-305): per epoch, train,
-    validate, step the schedule and checkpoint, with a best copy when the
-    validation loss is the lowest so far.  `resume` restores weights,
-    batch-norm statistics, momentum buffers, schedule step, epoch and
-    lowest loss from workdir/checkpoints.  Returns {'train_loss': [...],
+    validate, step the schedule and checkpoint (a `CheckpointManager` in
+    workdir/checkpoints), with a best copy when the validation loss is the
+    lowest so far.  `resume` restores weights, batch-norm statistics,
+    momentum buffers, step counts, epoch and lowest loss from its latest
+    step.  Returns {'train_loss': [...],
     'valid_loss': [...], 'lowest_loss': float, 'state': TrainState}."""
     if dp * sp > 1:
         raise NotImplementedError(
@@ -243,13 +345,18 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
     state = create_train_state(cfg, steps_per_epoch, seed, device=device)
 
     ckpt_dir = os.path.join(workdir, "checkpoints")
+    mgr = CheckpointManager(ckpt_dir) if save_checkpoints else None
     start_epoch, lowest_loss = 0, float("inf")
-    if resume and latest_checkpoint(ckpt_dir) is not None:
-        restored = restore_checkpoint(latest_checkpoint(ckpt_dir), state)
-        start_epoch = restored["epoch"]
-        lowest_loss = restored["lowest_loss"]
-        logger.info("resumed from epoch %d (lowest %.6f)", start_epoch,
-                    lowest_loss)
+    if resume:
+        # restore must not depend on whether this run saves (the
+        # evaluate-only path resumes with save_checkpoints=False)
+        restored = (mgr or CheckpointManager(ckpt_dir)).restore()
+        if restored is not None:
+            restored = restore_checkpoint(restored, state)
+            start_epoch = restored["epoch"]
+            lowest_loss = restored["lowest_loss"]
+            logger.info("resumed from epoch %d (lowest %.6f)", start_epoch,
+                        lowest_loss)
 
     history = {"train_loss": [], "valid_loss": []}
     for epoch in range(start_epoch, epochs):
@@ -280,9 +387,10 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
                     vavg)
         is_best = vavg < lowest_loss
         lowest_loss = min(vavg, lowest_loss)
-        if save_checkpoints:
-            save_checkpoint(ckpt_dir, state, epoch + 1, lowest_loss,
-                            is_best=is_best)
+        if mgr is not None:
+            mgr.save(epoch + 1, checkpoint_dict(state, epoch + 1,
+                                                lowest_loss),
+                     is_best=is_best)
 
     if not history["valid_loss"]:
         # evaluate-only (epochs == 0) or a fully resumed run: one pass on

@@ -842,3 +842,27 @@ def test_aot_graph_replays_match_eager(dev, impl, tmp_path):
         assert np.array_equal(srv.latest()[1], served.infer(scans[0])[0])
     finally:
         srv.stop()
+
+
+def test_binning_on_the_card_equals_the_cpu(dev):
+    """Cell ids and grid indices on the card equal the CPU's (IEEE float32
+    division, as the JAX package bins) on fine_grid's 0.4 m cells, where
+    division by a Python scalar, a product with its reciprocal on the
+    card, moved points on cell edges into the next cell."""
+    from gndnet_tpu_torch.config import fine_grid_config
+    from gndnet_tpu_torch.ops import pillarize as pz
+    from gndnet_tpu_torch.ops.postproc import _cell_indices
+
+    cfg = fine_grid_config()
+    geom = pz.PillarGeometry.from_config(cfg)
+    for seed in range(6):
+        scan = torch.from_numpy(synthetic_scan(cfg, np.random.default_rng(
+            seed), 100_000))
+        cpu, card = pz.bin_points(scan, geom), pz.bin_points(scan.to(dev),
+                                                             geom)
+        assert torch.equal(card.cell.cpu(), cpu.cell)
+        for a, b in zip(_cell_indices(scan.to(dev), cfg.grid_range,
+                                      cfg.voxel_size[0]),
+                        _cell_indices(scan, cfg.grid_range,
+                                      cfg.voxel_size[0])):
+            assert torch.equal(a.cpu(), b)

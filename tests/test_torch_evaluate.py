@@ -15,6 +15,7 @@ from gndnet_tpu import evaluate as jev
 from gndnet_tpu.checkpoint import import_torch_state_dict
 from gndnet_tpu.config import GndNetConfig as JaxConfig
 from gndnet_tpu_torch import evaluate as tev
+from gndnet_tpu_torch.checkpoint import CheckpointManager
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.data.generator import generate_sequence
 from gndnet_tpu_torch.infer import GroundInferenceEngine
@@ -198,7 +199,8 @@ def test_evaluate_height_rmse_matches_jax(weights, sequence, tmp_path, impl):
 
 def test_evaluate_cli(weights, sequence, tmp_path, capsys):
     """`python -m gndnet_tpu_torch.scripts.evaluate` on a config file and
-    a .pth.tar prints the harness's dict; an orbax directory raises."""
+    a .pth.tar prints the harness's dict, and the same from a
+    `CheckpointManager` directory holding those weights."""
     sd, _ = weights
     _, cfg = configs("affine")
     cfg_path, ckpt = tmp_path / "small.yaml", tmp_path / "w.pth.tar"
@@ -213,7 +215,11 @@ def test_evaluate_cli(weights, sequence, tmp_path, capsys):
     want = tev.evaluate_semantic_kitti(cfg, sd, str(sequence), 0.08, False,
                                        device="cpu").as_dict()
     assert printed == want
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eval_cli.main(["--config", str(cfg_path), "--data_dir",
-                       str(sequence), "--resume", str(tmp_path),
-                       "--device", "cpu"])
+    ckpt_dir = tmp_path / "checkpoints"
+    CheckpointManager(str(ckpt_dir)).save(
+        3, {"state_dict": sd, "epoch": 3, "lowest_loss": 1.0,
+            "optimizer": {}})
+    eval_cli.main(["--config", str(cfg_path), "--data_dir", str(sequence),
+                   "--resume", str(ckpt_dir), "--threshold", "0.08",
+                   "--corrected", "--device", "cpu"])
+    assert ast.literal_eval(capsys.readouterr().out.strip()) == want

@@ -60,7 +60,10 @@ def test_importing_the_port_loads_no_jax():
                  "utils.compile_cache", "serving.replay",
                  "serving.ros_node", "evaluate", "ops.postproc",
                  "data.augmentation", "data.generator", "synthetic",
-                 "scripts.evaluate", "scripts.generate_data"):
+                 "scripts.evaluate", "scripts.generate_data",
+                 "scripts.train", "scripts.predict",
+                 "scripts.convert_checkpoint", "scripts.plot_losses",
+                 "ops.scatter", "utils.logging", "utils.schedules"):
         assert f"gndnet_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
 

@@ -21,8 +21,8 @@ from test_torch_train import SMALL, _labelled
 
 def test_train_step_paths_and_errors():
     """The plain path (reference=True) takes the same steps as the kernel
-    path's CPU run, augmentation runs, and the options the port does not
-    carry yet raise with their ROADMAP item."""
+    path's CPU run, augmentation and loss scaling run, and the options the
+    port does not carry yet raise with their ROADMAP item."""
     cfg = GndNetConfig(**SMALL).replace(compute_dtype="bfloat16",
                                         matmul_precision="default")
     pts, labels = _labelled(np.random.default_rng(2), cfg)
@@ -35,8 +35,11 @@ def test_train_step_paths_and_errors():
     # augmentation runs (test_torch_train_augment.py holds it)
     _, loss = train.make_train_step(cfg, augment=True)(a, pts, labels)
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="item 6, 'Loss scaling'"):
-        train.create_train_state(cfg, 10, loss_scaling=True, device="cpu")
+    # loss scaling runs (test_torch_train_pillar.py holds it against JAX)
+    scaled = train.create_train_state(cfg, 10, loss_scaling=True,
+                                      device="cpu")
+    _, loss = train.make_train_step(cfg)(scaled, pts, labels)
+    assert bool(torch.isfinite(loss)) and scaled.dynamic_scale.fin_steps == 1
     with pytest.raises(NotImplementedError, match="item 9, 'Multi-GPU"):
         train.train_and_evaluate(cfg, dp=2, device="cpu")
     # use_norm training runs (through the scatter frontend, as JAX routes
