@@ -118,7 +118,15 @@ Phases, each printing one JSON line:
      validation batch), `-e` resumed, `predict` from the checkpoint
      directory under a serving YAML (K1, K3, K2 once; equal to the
      engine), `convert_checkpoint` both ways bit-equal;
- 28. the kernels line, the card line, then the result line.
+ 28. parallel: the multi-GPU paths in two rank processes (gloo on one
+     card, NCCL on two or more) at kitti_sem's full width, each against
+     its single-device counterpart on the same card: the dp=2 f32 step
+     (K4, K6 in each rank), the dp=2 bf16 affine step (K3, K5, K6 once a
+     step), `make_spatial_infer` at sp=2 (f32 parity; at the serving
+     settings K1, K3, K2 once a scan), the sp=2 f32 spmd step, and
+     fine_grid through 'affine' at sp=2 (K10, K3, K2 once a scan); every
+     rank's launches go into `launches_by_path` as parallel_<run>_rank<r>;
+ 29. the kernels line, the card line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -149,6 +157,7 @@ from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.ops import affine, affine_aux, segment, sort
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.ops.postproc import _cell_indices, lidar_to_heightmap
+from gndnet_tpu_torch.parallel import multihost
 from gndnet_tpu_torch.profile_affine import serving_config, time_ms
 from gndnet_tpu_torch.profile_serve import card, kernel_times
 from gndnet_tpu_torch.serving.replay import replay, replay_device
@@ -2291,6 +2300,266 @@ def cli_phase(cfg, gen_out: str, root: str, device) -> dict:
     return {"launches": launches, "result": out}
 
 
+PAR_RANKS = 2            # rank processes of phase 28
+PAR_SCANS = 4            # scans a rank serves in the spatial runs
+PAR_STEPS = 3            # timed bf16 dp steps, after one warm step
+PAR_TIMEOUT_S = 600.0
+# f32 spatial inference against the unsharded forward, the JAX package's
+# own tolerance (tests/test_parallel.py)
+PAR_INFER_RTOL, PAR_INFER_ATOL = 1e-4, 1e-5
+# a mesh train step against the single-device step on the whole batch,
+# the JAX package's tolerances (tests/test_parallel.py): loss, parameters,
+# batch-norm running statistics
+PAR_LOSS_RTOL = 1e-5
+PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-3, 1e-5
+PAR_STAT_RTOL, PAR_STAT_ATOL = 1e-4, 1e-6
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def parallel_ranks(rank, world, device, runs) -> dict:
+    """Phase 28's rank side, run by `multihost.spawn` in each rank process:
+    every run of `runs` on a fresh (dp, sp) mesh, through the entry points
+    a user calls (`parallel.mesh`, `parallel.spatial`).  Returns per run
+    this rank's mesh index, its kernel launches by wrapper (counted from
+    after a warm call), host-clock ms a step or a scan, and the losses,
+    the outputs or (f32 steps) the state dict."""
+    from gndnet_tpu_torch.parallel import mesh as pmesh
+    from gndnet_tpu_torch.parallel import spatial
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    for run in runs:
+        cfg, dp, sp = run["cfg"], run["dp"], run["sp"]
+        mesh = pmesh.make_mesh(dp, sp)
+        res = {"dp": mesh.get_local_rank("dp"),
+               "sp": mesh.get_local_rank("sp")}
+        if run["kind"] == "train":
+            state = train.create_train_state(cfg, 100, state_dict=run["sd"],
+                                             device=device)
+            pmesh.replicate(mesh, state)
+            step = (spatial.make_spmd_train_step if sp > 1 else
+                    pmesh.make_dp_train_step)(cfg, mesh)
+            batch = pmesh.shard_batch(mesh, (run["points"], run["labels"]),
+                                      device)
+            losses = []
+            if run["warm"]:
+                losses.append(float(step(state, *batch)[1]))
+            _sync(device)
+            for fn in COUNTERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(run["steps"]):
+                losses.append(float(step(state, *batch)[1]))
+            _sync(device)
+            res["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / run[
+                "steps"]
+            res["losses"] = losses
+            if not run["warm"]:
+                res["state_dict"] = {k: v.detach().cpu() for k, v in
+                                     state.model.state_dict().items()}
+        else:
+            model = GroundEstimatorNet(cfg, device=device)
+            model.load_state_dict(run["sd"])
+            infer = spatial.make_spatial_infer(cfg, mesh)
+            local = pmesh.shard_batch(mesh, (run["points"],), device)[0]
+            infer(model, local[:1])
+            _sync(device)
+            for fn in COUNTERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            outs = [infer(model, local[i:i + 1])
+                    for i in range(local.shape[0])]
+            _sync(device)
+            res["ms_per_scan"] = (time.perf_counter() - t0) * 1e3 / len(outs)
+            res["out"] = torch.cat(outs).cpu()
+        res["launches"] = {fn.__name__: fn.launches for fn in COUNTERS}
+        out[run["name"]] = res
+    return out
+
+
+def compute_mode() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def parallel_phase(cfg, sd, rng, n_points: int, device) -> dict:
+    """Phase 28: the multi-GPU paths in PAR_RANKS rank processes at
+    kitti_sem's full width.  With one card both ranks share it over gloo
+    (NCCL refuses two ranks on one device); with two or more, one card
+    each over NCCL (`multihost.choose_backend`).  Runs, each against its
+    single-device counterpart in this process on the same card:
+
+    a) `make_dp_train_step` dp=2 (one scan a rank) at float32 / 'highest',
+       TF32 off, one step against the B=2 single-device step (loss,
+       parameters, batch-norm statistics at the JAX tests' tolerances);
+       K4 and K6 launched in each rank;
+    b) the dp=2 bf16 affine step: K3, K5 and K6 once a step in each rank,
+       losses finite;
+    c) `make_spatial_infer` sp=2 (slabs of 52 rows, 4 of them padding) at
+       float32 against the unsharded forward (rtol 1e-4, atol 1e-5), and
+       at the serving settings: K1, K3 and K2 once a scan in each rank,
+       within SERVE_MANY_ELEV_ATOL of the unsharded forward;
+    d) `make_spmd_train_step` sp=2 at float32, one step against the same
+       single-device step as a);
+    e) fine_grid through 'affine' at sp=2 (ny 250, slabs of 128): K10, K3
+       and K2 once a scan in each rank.
+
+    The f32 steps run at beta=0 (no smoothness term): where the map is
+    flat, its second differences are rounding noise around 0 whose sign
+    |.|'s gradient takes, so any two batchings of one step differ there
+    (tests/test_torch_parallel.py measures 1.39x the parameter tolerance,
+    for JAX's own dp step as for the port's).  Times are host-clock ms of
+    ranks that may share one card: a functional run, not a scaling
+    figure."""
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    backend = multihost.choose_backend(device, PAR_RANKS)
+    mode = compute_mode() if device == "cuda" else "cpu"
+    require(cards >= 2 or "exclusive" not in mode.lower(),
+            f"one card in compute mode {mode} admits one process")
+    cfg32 = cfg.replace(compute_dtype="float32", matmul_precision="highest",
+                        beta=0.0)
+    points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
+                                              n_points)
+    scans = np.stack([synthetic_scan(cfg, rng, n_points)
+                      for _ in range(PAR_SCANS)])
+    fine = serving_config(SHIPPED["fine_grid"]())
+    fine_sd = init_state_dict(fine, seed=SEED)
+    set_bn_stats(fine_sd, rng)
+    fine_scans = np.stack([synthetic_scan(fine, rng, n_points)
+                           for _ in range(2)])
+    common = dict(points=points, labels=labels, sd=sd)
+    runs = [
+        dict(name="dp_train_f32", kind="train", cfg=cfg32, dp=2, sp=1,
+             steps=1, warm=False, **common),
+        dict(name="dp_train", kind="train", cfg=cfg, dp=2, sp=1,
+             steps=PAR_STEPS, warm=True, **common),
+        dict(name="spatial_infer_f32", kind="infer", cfg=cfg32, dp=1, sp=2,
+             sd=sd, points=scans[:2]),
+        dict(name="spatial_infer", kind="infer", cfg=cfg, dp=1, sp=2, sd=sd,
+             points=scans),
+        dict(name="spmd_train_f32", kind="train", cfg=cfg32, dp=1, sp=2,
+             steps=1, warm=False, **common),
+        dict(name="spatial_infer_fine_grid", kind="infer", cfg=fine, dp=1,
+             sp=2, sd=fine_sd, points=fine_scans)]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gndnet_ranks_") as work:
+        ranks = multihost.spawn("chip_smoke:parallel_ranks", PAR_RANKS,
+                                kwargs=dict(runs=runs), device=device,
+                                workdir=work,
+                                timeout=PAR_TIMEOUT_S)
+    rank_seconds = time.perf_counter() - t0
+
+    # the single-device references, on this process's card
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        single = train.create_train_state(cfg32, 100, state_dict=sd,
+                                          device=device)
+        single_loss = float(train.make_train_step(cfg32)(
+            single, points, labels)[1])
+        want_sd = {k: v.detach().cpu()
+                   for k, v in single.model.state_dict().items()}
+        unsharded = {}
+        for name, c, s, x in (("spatial_infer_f32", cfg32, sd, scans[:2]),
+                              ("spatial_infer", cfg, sd, scans),
+                              ("spatial_infer_fine_grid", fine, fine_sd,
+                               fine_scans)):
+            model = GroundEstimatorNet(c, device=device)
+            model.load_state_dict(s)
+            unsharded[name] = torch.cat([
+                model.fused(torch.from_numpy(x[i:i + 1]).to(device)).cpu()
+                for i in range(x.shape[0])])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+    per_scan = {"spatial_infer_f32": ((K1, K3, K2), 2),
+                "spatial_infer": ((K1, K3, K2), PAR_SCANS),
+                "spatial_infer_fine_grid": ((K10, K3, K2), 2)}
+    per_step = {"dp_train": ((K3, K5, K6), PAR_STEPS)}
+    launched = {"dp_train_f32": (K4, K6), "spmd_train_f32": (K4, K6)}
+    paths, runs_out = {}, {}
+    for run in runs:
+        name = run["name"]
+        res = [r[name] for r in ranks]
+        for r, rr in enumerate(res):
+            paths[f"parallel_{name}_rank{r}"] = rr["launches"]
+            wrappers, n = per_scan.get(name) or per_step.get(name) or (
+                launched[name], None)
+            for fn in wrappers:
+                got = rr["launches"][fn.__name__]
+                require(got > 0 if n is None else got == n,
+                        f"{fn.__name__} launched {got} times in rank {r} of "
+                        f"parallel {name}" + ("" if n is None else
+                                              f", not {n}"))
+        row = {"ranks": [{k: v for k, v in rr.items()
+                          if k in ("dp", "sp", "launches", "losses",
+                                   "ms_per_step", "ms_per_scan")}
+                         for rr in res]}
+        if name in unsharded:
+            want = unsharded[name]
+            for rr in res:
+                require(torch.equal(rr["out"], res[0]["out"]),
+                        f"parallel {name}: sp ranks disagree")
+            got = res[0]["out"]
+            require(got.shape == want.shape
+                    and bool(torch.isfinite(got).all()),
+                    f"parallel {name}: output shape / finite")
+            err = float((got - want).abs().max())
+            row["max_abs_err_vs_unsharded"] = err
+            if name == "spatial_infer_f32":
+                ok = torch.allclose(got, want, rtol=PAR_INFER_RTOL,
+                                    atol=PAR_INFER_ATOL)
+                row["rtol_atol"] = [PAR_INFER_RTOL, PAR_INFER_ATOL]
+            else:
+                ok = err <= SERVE_MANY_ELEV_ATOL
+                row["atol"] = SERVE_MANY_ELEV_ATOL
+            require(ok, f"parallel {name}: {err} from the unsharded forward")
+        elif name.endswith("_f32"):
+            loss = res[0]["losses"][0]
+            rel = abs(loss - single_loss) / abs(single_loss)
+            require(rel <= PAR_LOSS_RTOL, f"parallel {name}: loss {loss} "
+                                          f"against single {single_loss}")
+            worst = 0.0
+            for k, w in want_sd.items():
+                if not w.is_floating_point():
+                    continue
+                stat = "running" in k
+                rt = PAR_STAT_RTOL if stat else PAR_PARAM_RTOL
+                at = PAR_STAT_ATOL if stat else PAR_PARAM_ATOL
+                g = res[0]["state_dict"][k]
+                share = float(((g - w).abs() / (at + rt * w.abs())).max())
+                worst = max(worst, share)
+                for rr in res[1:]:
+                    require(torch.equal(rr["state_dict"][k], g),
+                            f"parallel {name}: ranks disagree on {k}")
+            require(worst <= 1.0, f"parallel {name}: state {worst} of the "
+                                  "tolerance from the single-device step")
+            row.update(loss=loss, single_loss=single_loss, loss_rel=rel,
+                       worst_share_of_tolerance=worst)
+        else:
+            losses = [v for rr in res for v in rr["losses"]]
+            require(all(np.isfinite(losses)), f"parallel {name}: losses "
+                                              f"{losses}")
+        runs_out[name] = row
+    return {"launches": paths, "result": {
+        "phase": "parallel", "backend": backend, "cards": cards,
+        "ranks": PAR_RANKS, "compute_mode": mode,
+        "nvidia_smi": card() if device == "cuda" else "cpu",
+        "timing": "host clock in each rank, ranks sharing one card where "
+                  "cards < ranks: a functional run, not a scaling figure",
+        "seconds_ranks": rank_seconds, "single_loss_f32": single_loss,
+        "runs": runs_out}}
+
+
 REPLACES = {
     "cluster_radix_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
                                "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
@@ -2354,7 +2623,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-27 on `device`; returns the kernels line's entries."""
+    """Phases 3-28 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -2474,6 +2743,9 @@ def run(cfg, n_points: int, device) -> list:
         clis = cli_phase(cfg, gen["out"], root, device)
         paths.update(clis["launches"])
         emit(clis["result"])
+    par = parallel_phase(cfg, sd, rng, n_points, device)
+    paths.update(par["launches"])
+    emit(par["result"])
 
     kernels = []
     for row in rows:

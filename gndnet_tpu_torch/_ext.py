@@ -5,7 +5,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 by `nvcc` into its own shared library under `_build/` (listed in
 .gitignore), then loaded with `ctypes`.  The library's file name carries a
 hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.  Every C entry takes its pointers and the CUDA
+library is never loaded.  Builds hold a file lock in `_build/`, so the
+processes of a multi-process run that load the same library at once get
+one build of it.  Every C entry takes its pointers and the CUDA
 stream as `c_void_p`, launches on PyTorch's current stream, allocates
 nothing, and returns `cudaGetLastError()`; `check` raises on a non-zero
 code.  Nothing here runs at import time: this module imports on hosts
@@ -15,7 +17,9 @@ CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -118,11 +122,27 @@ def sources() -> list[str]:
     return sorted({lib for lib, _ in SIGNATURES.values()})
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This process's lock, then an exclusive `flock` on `_build/.lock`:
+    builds in several processes at once (the ranks of a multi-process
+    run) take turns, and a process that waited finds the library the
+    first one built instead of building it again."""
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> float:
     """Compile every kernel source that has no current library, one nvcc
     per source, all started together.  Returns the wall seconds taken."""
     t0 = time.perf_counter()
-    with _lock:
+    with _build_lock():
         started = [(name, *_start_build(name)) for name in sources()]
         try:
             for name, proc, tmp, path in started:
@@ -141,7 +161,7 @@ def function(entry: str):
     if fn is not None:
         return fn
     lib_name, argtypes = SIGNATURES[entry]
-    with _lock:
+    with _build_lock():
         lib = _libs.get(lib_name)
         if lib is None:
             _finish_build(lib_name, *_start_build(lib_name))

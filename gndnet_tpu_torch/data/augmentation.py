@@ -193,12 +193,16 @@ class AugmentationPipeline:
 # on the device (train time)
 # ---------------------------------------------------------------------------
 
-def augment_generator(seed: int, step: int, device) -> torch.Generator:
+def augment_generator(seed: int, step: int, device,
+                      rank: int | None = None) -> torch.Generator:
     """A generator on `device` seeded from (seed, step), so every optimizer
     step draws anew and the same step draws the same (the JAX package
-    keys its step on fold_in(PRNGKey(0), step))."""
+    keys its step on fold_in(PRNGKey(0), step)); with a data-parallel
+    `rank`, from (seed, step, rank), so each shard draws its own (the
+    mesh steps' fold_in of the dp index)."""
+    entropy = (seed, step) if rank is None else (seed, step, rank)
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence((seed, step))
+    g.manual_seed(int(np.random.SeedSequence(entropy)
                       .generate_state(1, np.uint64)[0]))
     return g
 

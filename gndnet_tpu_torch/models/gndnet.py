@@ -99,12 +99,13 @@ class GroundEstimatorNet(nn.Module):
             return self.encoder_decoder(canvas, train=train)[..., 0]
 
     def canvas(self, points: torch.Tensor, train: bool = False,
-               reference: bool = False) -> torch.Tensor:
+               reference: bool = False, bn_group=None) -> torch.Tensor:
         """(B, N, F) raw points -> (B, ny, nx, C) post-PFN canvas,
         differentiable in the PFN parameters when autograd records (except
         through 'sorted').  `train=True` runs a use_norm PFN on batch
         statistics, through the scatter frontend whatever the impl, as the
-        JAX package routes it.  `reference=True` takes the plain version of
+        JAX package routes it, its statistics over the ranks of `bn_group`
+        (None: this process).  `reference=True` takes the plain version of
         every kernel stage."""
         cfg = self.cfg
         if len(cfg.vfe_filters) != 1:
@@ -143,8 +144,8 @@ class GroundEstimatorNet(nn.Module):
                 # scan, capped at max_voxels, times max_points
                 occ = (cell_count > 0).reshape(ctx.batch, -1).sum(dim=1)
                 rows = torch.clamp(occ, max=cfg.max_voxels).sum() * cap
-                acts, pad_floor = layer.activate_flat_bn_train(decorated,
-                                                               rows)
+                acts, pad_floor = layer.activate_flat_bn_train(
+                    decorated, rows, bn_group)
             else:
                 acts = layer.activate_flat(decorated)
                 # a non-full pillar's zero rows give activate(0) to its max
@@ -159,14 +160,19 @@ class GroundEstimatorNet(nn.Module):
                                           self.geom, cap, pad_floor=pad_floor)
 
     def fused(self, points: torch.Tensor, train: bool = False,
-              reference: bool = False) -> torch.Tensor:
+              reference: bool = False, bn_group=None) -> torch.Tensor:
         """(B, N, F) raw points -> (B, ny, nx) float32 elevation.
 
         train=False serves under `torch.no_grad()`; train=True records the
         graph for the PFN and SegNet parameters and runs batch norm on
         batch statistics, updating the running ones ('affine': K4/K5
         forward, K6 backward; 'scatter': scatter-max, whose backward splits
-        ties; 'sorted' raises)."""
+        ties; 'sorted' raises).  With a process `bn_group` (the JAX
+        package's `bn_axis`) every batch norm that trains on batch
+        statistics (the SegNet's, a use_norm PFN's) takes them over all the
+        group's ranks: sync-BN."""
         with contextlib.nullcontext() if train else torch.no_grad():
-            canvas = self.canvas(points, train=train, reference=reference)
-            return self.encoder_decoder(canvas, train=train)[..., 0]
+            canvas = self.canvas(points, train=train, reference=reference,
+                                 bn_group=bn_group)
+            return self.encoder_decoder(canvas, train=train,
+                                        bn_group=bn_group)[..., 0]

@@ -25,6 +25,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from gndnet_tpu_torch.parallel.collectives import psum
+
 FLAX_PFN_MOMENTUM = 0.99   # running = 0.99 * running + 0.01 * batch
 BN_EPS = 1e-3
 
@@ -62,14 +64,21 @@ class PFNLayer(nn.Module):
         return torch.relu(z)
 
     def bn_train_affine(self, s: torch.Tensor, q: torch.Tensor,
-                        rows: torch.Tensor):
+                        rows: torch.Tensor, bn_group=None):
         """Batch-statistics (inv, shift) from per-channel sums s and sums of
         squares q over `rows` pillar-tensor rows (a dynamic count, floored
         at 1): mean = s / rows, var = max(q / rows - mean^2, 0), with the
         gradient through both.  The running statistics move as flax's
         BatchNorm moves them on the 2-row surrogate [mean + sd, mean - sd],
-        outside autograd."""
-        rows = torch.clamp(rows.float(), min=1.0)
+        outside autograd.  With `bn_group` (the JAX package's `bn_axis`)
+        s, q and rows are first summed over the group's ranks, so the
+        statistics are the concatenated batch's even where the ranks hold
+        different numbers of pillars."""
+        rows = rows.float()
+        if bn_group is not None:
+            s, q = psum(s, bn_group), psum(q, bn_group)
+            rows = psum(rows, bn_group)
+        rows = torch.clamp(rows, min=1.0)
         mean = s / rows
         var = torch.maximum(q / rows - mean * mean, torch.zeros_like(q))
         n = self.norm
@@ -86,17 +95,18 @@ class PFNLayer(nn.Module):
         return inv, n.bias - mean * inv
 
     def activate_flat_bn_train(self, decorated: torch.Tensor,
-                               total_rows: torch.Tensor):
+                               total_rows: torch.Tensor, bn_group=None):
         """use_norm training on the flat kept-masked (N, D) stream: the
         padded pillar tensor's pad rows (and dropped points) are zero rows,
         which the bias-free linear maps to z = 0, so one sum and one sum of
         squares over the flat z stream give its batch statistics with the
         reference's dynamic divisor `total_rows` (n_actual_pillars x
         max_points).  Returns (acts (N, C), pad_floor (C,) = relu(shift),
-        what every padding row gives its pillar's max)."""
+        what every padding row gives its pillar's max).  `bn_group`: as in
+        `bn_train_affine`."""
         z = self.dense(decorated).float()
         inv, shift = self.bn_train_affine(z.sum(dim=0), (z * z).sum(dim=0),
-                                          total_rows)
+                                          total_rows, bn_group)
         return torch.relu(z * inv + shift), torch.relu(shift)
 
     def forward(self, x: torch.Tensor, train: bool = False,

@@ -16,9 +16,9 @@ offset from its cell's kept-point mean and from the cell centre), mask the
 points past each cell's cap, and leave the PFN to the caller; their canvas
 is the per-cell max of the activations.  'scatter' sums and maxes with
 duplicate-index scatters (`index_add_`, `scatter_reduce('amax')`, which on
-the card add in atomic order, so its sums are not bit-stable there; the
-counts, sums of 1.0, are exact).  'sorted' sorts the stream by cell once and
-reduces contiguous runs with K7.
+the card add in atomic order; there `fused_frontend` sums in float64, so
+its per-cell sums do not move with that order).  'sorted' sorts the stream by
+cell once and reduces contiguous runs with K7.
 
 `affine_canvas` turns raw scans into the post-PFN pseudo-image without
 building the (pillars, points) tensor: sort one packed (cell, index) key per
@@ -328,16 +328,27 @@ def fused_frontend(points: torch.Tensor, ctx: PointContext,
     (num_segments - 1,) int32): one rank sort when `exact_point_cap` (the
     first `max_points` points of each cell in stream order are kept; all
     in-range points without it), one scatter-add of [xyz * kept, kept] per
-    cell and one gather back to the points."""
+    cell and one gather back to the points.
+
+    On the card the scatter-add adds in atomic order, and a float32 sum
+    rounded in that order moved a use_norm train step's parameters by up
+    to 1.6e-5 from one run to the next (its batch statistics amplify the
+    cluster means' last bit).  There it runs in float64, which holds a
+    cell's sum of float32 coordinates exactly unless their magnitudes span
+    more than about 2^20, and rounds the sums to float32 once, before the
+    mean.  On the CPU it adds in stream order in float32, as the JAX
+    package's segment sum does."""
     if exact_point_cap:
         kept = ctx.valid & (point_ranks(ctx) < max_points)
     else:
         kept = ctx.valid
     keptf = kept.to(points.dtype)[:, None]
     cell = ctx.cell.long()
-    stats = torch.zeros((ctx.num_segments, 4), dtype=points.dtype,
+    acc = torch.float64 if points.is_cuda else points.dtype
+    stats = torch.zeros((ctx.num_segments, 4), dtype=acc,
                         device=points.device).index_add_(
-        0, cell, torch.cat([points[:, :3] * keptf, keptf], dim=-1))
+        0, cell, torch.cat([points[:, :3] * keptf, keptf], dim=-1)
+        .to(acc)).to(points.dtype)
     per_point = stats[cell]
     mean_pp = per_point[:, :3] / torch.clamp(per_point[:, 3:4], min=1.0)
     decorated = _decorate(points, ctx.cx, ctx.cy, mean_pp, keptf, geom,

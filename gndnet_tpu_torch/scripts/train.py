@@ -11,6 +11,12 @@ Example:
       --workdir runs/kitti [--impl affine --bf16] [--device cpu]
   python -m gndnet_tpu_torch.scripts.train --config my.yaml --resume \\
       --workdir runs/kitti
+  torchrun --nproc_per_node=4 -m gndnet_tpu_torch.scripts.train \\
+      --config kitti_sem -s --workdir runs/kitti --dp 2 --sp 2
+
+With dp * sp > 1 the CLI runs one process per rank (torchrun sets
+WORLD_SIZE, RANK, LOCAL_RANK and the rendezvous); each rank trains on
+its card, rank 0 writes the log and the checkpoints.
 """
 
 import argparse
@@ -47,18 +53,17 @@ def main(argv=None):
                         "(rotation and height, labels co-transformed; "
                         "drawn from the step count, so resumes repeat it)")
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel size (default: visible cards // sp); "
-                        "only 1 runs in this package")
+                   help="data-parallel size (default: WORLD_SIZE // sp); "
+                        "dp * sp > 1 runs one process per rank")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial-parallel size; only 1 runs in this package")
+                   help="spatial-parallel size (pseudo-image height "
+                        "sharded; requires use_norm off)")
     p.add_argument("--cache_dir", default=None,
                    help="directory the kernel libraries are built into and "
                         "loaded from (utils/compile_cache.py)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-
-    import torch
 
     from gndnet_tpu_torch.config import load_config
     from gndnet_tpu_torch.train import train_and_evaluate
@@ -79,24 +84,35 @@ def main(argv=None):
         cfg = cfg.replace(compute_dtype="bfloat16",
                           matmul_precision="default")
     sp, dp = args.sp, args.dp
+    world = int(os.environ.get("WORLD_SIZE", 1))
     if dp is None:
-        on_card = args.device is None or torch.device(args.device).type \
-            == "cuda"
-        visible = torch.cuda.device_count() if on_card else 1
-        dp = max(visible // sp, 1)
+        dp = max(world // sp, 1)
+    if dp * sp > world:
+        raise ValueError(
+            f"--dp {dp} x --sp {sp} needs {dp * sp} ranks, this run has "
+            f"{world} (WORLD_SIZE): launch one process per rank, e.g. "
+            f"torchrun --nproc_per_node={dp * sp} -m "
+            "gndnet_tpu_torch.scripts.train ...")
+    rank = 0
     if dp * sp > 1:
-        raise NotImplementedError(
-            f"dp={dp} x sp={sp}: data and spatial parallel training is "
-            "ROADMAP.md queue 1, item 9, 'Multi-GPU (dp/sp)'; pass --dp 1 "
-            "to train on one card")
+        import torch.distributed as dist
+
+        from gndnet_tpu_torch.parallel import multihost
+
+        if not dist.is_initialized():
+            multihost.initialize(backend=multihost.choose_backend(
+                args.device, int(os.environ.get("LOCAL_WORLD_SIZE", world))))
+        rank = dist.get_rank()
     os.makedirs(args.workdir, exist_ok=True)
-    logger = setup_logger("train", os.path.join(args.workdir,
-                                                "training.log"))
+    logger = setup_logger(
+        "train" if rank == 0 else f"train_rank{rank}",
+        os.path.join(args.workdir, "training.log") if rank == 0 else None)
     logger.info("config: %s", args.config)
 
     kw = dict(workdir=args.workdir, print_freq=args.print_freq,
               seed=args.seed, train_skip=args.train_skip,
-              valid_skip=args.valid_skip, logger=logger, device=args.device)
+              valid_skip=args.valid_skip, dp=dp, sp=sp, logger=logger,
+              device=args.device)
     if args.evaluate:
         hist = train_and_evaluate(cfg, epochs=0, resume=True,
                                   save_checkpoints=False, **kw)

@@ -312,18 +312,52 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
     workdir/checkpoints), with a best copy when the validation loss is the
     lowest so far.  `resume` restores weights, batch-norm statistics,
     momentum buffers, step counts, epoch and lowest loss from its latest
-    step.  Returns {'train_loss': [...],
-    'valid_loss': [...], 'lowest_loss': float, 'state': TrainState}."""
+    step.
+
+    `dp` / `sp` > 1 train over a (dp, sp) mesh of ranks: one process per
+    rank (torchrun, or `parallel.multihost.spawn`), the process group
+    initialized, every rank calling this with the same arguments.  Each
+    rank takes its dp shard of every batch (`parallel.mesh`); sp > 1
+    shards the pseudo-image height with halo exchange
+    (`parallel.spatial`); gradients and batch statistics sync over the
+    mesh and the state stays replicated.  Rank 0 alone writes the log file
+    and the checkpoints, every rank resumes from them.  Validation runs
+    the single-device eval step on the replicated state, on every rank.
+    sp > 1 requires use_norm=False; batch_size must divide by dp.  Without
+    a process group of dp * sp ranks it raises.  `device` is this rank's
+    ('cuda': the card LOCAL_RANK).
+
+    Returns {'train_loss': [...], 'valid_loss': [...], 'lowest_loss':
+    float, 'state': TrainState}."""
+    mesh, rank = None, 0
     if dp * sp > 1:
-        raise NotImplementedError(
-            "dp/sp > 1 (data and spatial parallel training) is ROADMAP.md "
-            "queue 1, item 9, 'Multi-GPU (dp/sp)'")
+        from gndnet_tpu_torch.parallel import mesh as pmesh
+        from gndnet_tpu_torch.parallel import multihost, spatial
+
+        if cfg.batch_size % dp:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must divide by dp={dp}")
+        if sp > 1 and cfg.use_norm:
+            raise ValueError("spatial training requires use_norm=False")
+        mesh = pmesh.make_mesh(dp, sp)
+        rank = torch.distributed.get_rank()
+        device = multihost.local_device(device)
     device = resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
     logger = logger or setup_logger(
-        "train", os.path.join(workdir, "training.log"))
+        "train" if rank == 0 else f"train_rank{rank}",
+        os.path.join(workdir, "training.log") if rank == 0 else None)
     epochs = cfg.epochs if epochs is None else epochs
-    step_fn = make_train_step(cfg, augment=augment)
+    if mesh is None:
+        step_fn = make_train_step(cfg, augment=augment)
+    else:
+        logger.info("mesh: dp=%d x sp=%d over %d ranks", dp, sp, dp * sp)
+        mesh_step = (spatial.make_spmd_train_step if sp > 1 else
+                     pmesh.make_dp_train_step)(cfg, mesh, augment=augment)
+
+        def step_fn(state, points, labels):
+            return mesh_step(state, *pmesh.shard_batch(
+                mesh, (points, labels), device))
     eval_step = make_eval_step(cfg)
 
     train_ds = GroundDataset(
@@ -343,9 +377,12 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
             f"batch_size or train_skip")
     steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
     state = create_train_state(cfg, steps_per_epoch, seed, device=device)
+    if mesh is not None:
+        pmesh.replicate(mesh, state)
 
     ckpt_dir = os.path.join(workdir, "checkpoints")
-    mgr = CheckpointManager(ckpt_dir) if save_checkpoints else None
+    mgr = (CheckpointManager(ckpt_dir) if save_checkpoints and rank == 0
+           else None)
     start_epoch, lowest_loss = 0, float("inf")
     if resume:
         # restore must not depend on whether this run saves (the
@@ -391,6 +428,8 @@ def train_and_evaluate(cfg: GndNetConfig, workdir: str = ".",
             mgr.save(epoch + 1, checkpoint_dict(state, epoch + 1,
                                                 lowest_loss),
                      is_best=is_best)
+        if mesh is not None and save_checkpoints:
+            torch.distributed.barrier()   # every rank sees rank 0's save
 
     if not history["valid_loss"]:
         # evaluate-only (epochs == 0) or a fully resumed run: one pass on

@@ -200,7 +200,7 @@ def test_train_cli_trains_checkpoints_and_evaluates(trained):
 
 def test_train_cli_parallel_sizes_raise(dataset, tmp_path):
     _, cfg_path = dataset
-    with pytest.raises(NotImplementedError, match="item 9.*--dp 1"):
+    with pytest.raises(ValueError, match="needs 2 ranks, this run has 1"):
         train_cli.main(["--config", cfg_path, "--workdir", str(tmp_path),
                         "--dp", "2", "--device", "cpu"])
 

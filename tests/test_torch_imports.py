@@ -63,7 +63,11 @@ def test_importing_the_port_loads_no_jax():
                  "scripts.evaluate", "scripts.generate_data",
                  "scripts.train", "scripts.predict",
                  "scripts.convert_checkpoint", "scripts.plot_losses",
-                 "ops.scatter", "utils.logging", "utils.schedules"):
+                 "ops.scatter", "utils.logging", "utils.schedules",
+                 "parallel.mesh", "parallel.spatial", "parallel.tp",
+                 "parallel.multihost", "parallel.collectives",
+                 "parallel.rank_jobs", "utils.perf_model",
+                 "utils.profiling", "scripts.launch_multihost"):
         assert f"gndnet_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
 

@@ -40,7 +40,7 @@ def test_train_step_paths_and_errors():
                                       device="cpu")
     _, loss = train.make_train_step(cfg)(scaled, pts, labels)
     assert bool(torch.isfinite(loss)) and scaled.dynamic_scale.fin_steps == 1
-    with pytest.raises(NotImplementedError, match="item 9, 'Multi-GPU"):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         train.train_and_evaluate(cfg, dp=2, device="cpu")
     # use_norm training runs (through the scatter frontend, as JAX routes
     # it); test_torch_train_scatter.py holds it against JAX

@@ -149,8 +149,31 @@ PILLAR_CASES = {"plain_64": (False, (64,)), "norm_64": (True, (64,)),
                 "norm_32_64": (True, (32, 64))}
 
 
+@pytest.fixture
+def one_thread():
+    """The port's steps on one intra-op thread, where the first step of
+    the norm_64 case agrees with JAX's within 1e-9.  The number of threads
+    sets the rounding of torch's CPU convolutions (by up to 1.1e-5 at 8
+    threads against 1), and on 8 threads one pre-activation of up2.conv1,
+    5.6e-6 from the ReLU's kink, changes sign in the first step: that
+    position's cotangent drops out of the gradients upstream of it, so
+    one of the block's batch-norm shifts lands at 1.96x and its conv
+    weight's momentum at 4.97x the 2e-2 share from JAX's, whose ReLU
+    keeps it.  Which side of a kink rounding lands on is no property of
+    the port, and no bound that holds the other tensors at 2e-2 covers
+    it.  The loss-scaled steps run on one thread too: on 4 threads
+    (OMP_NUM_THREADS=4) 24 of the 147 456 momenta of up1.conv1's conv
+    weight land at 1.94x the share."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("case", sorted(PILLAR_CASES))
-def test_pillar_path_steps_match_jax(case):
+def test_pillar_path_steps_match_jax(case, request):
+    if case == "norm_64":
+        request.getfixturevalue("one_thread")
     use_norm, vfe = PILLAR_CASES[case]
     jcfg, cfg = _configs(use_norm=use_norm, vfe_filters=vfe)
     sd = _initial(cfg)
@@ -218,6 +241,7 @@ def test_create_train_state_with_loss_scaling_has_flax_defaults():
         is None
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("growth_interval", [2000, 2])
 def test_loss_scaled_steps_match_jax(growth_interval):
     """Three finite steps: the scale and the run of finite steps equal
