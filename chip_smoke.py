@@ -126,7 +126,17 @@ Phases, each printing one JSON line:
      settings K1, K3, K2 once a scan), the sp=2 f32 spmd step, and
      fine_grid through 'affine' at sp=2 (K10, K3, K2 once a scan); every
      rank's launches go into `launches_by_path` as parallel_<run>_rank<r>;
- 29. the kernels line, the card line, then the result line.
+ 29. bench: `gndnet_tpu_torch.bench.main` in-process (watchdog off) at
+     kitti_sem's serving settings, modes device (--iters 1536), single,
+     batched (B=16), train (B=2 and B=16), replay and stream, and one
+     `python -m gndnet_tpu_torch.bench --mode device` as shipped: each
+     prints one line on the gpu with a finite `value` and `runs_hz` above
+     0; the graph engine replays every scan it serves; the B=1 modes
+     launch K1, K3 and K2 once a scan each engine runs eagerly (the
+     graph's warm-up and capture included), batched K3 and K2 once a call
+     (the batched sort, no K1), train K3, K5 and K6 once a step; each
+     mode's launches go into `launches_by_path` as its path;
+ 30. the kernels line, the card line, then the result line.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -134,7 +144,9 @@ is printed.  Without a CUDA device the script exits with code 2.
 from __future__ import annotations
 
 import ast
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -146,7 +158,8 @@ import time
 import numpy as np
 import torch
 
-from gndnet_tpu_torch import _ext, evaluate, native, profile_affine, train
+from gndnet_tpu_torch import (_ext, bench, evaluate, native, profile_affine,
+                              train)
 from gndnet_tpu_torch.config import (camera_config, custom_local_config,
                                      fine_grid_config, kitti_sem_config,
                                      sparse_32beam_config)
@@ -2560,6 +2573,108 @@ def parallel_phase(cfg, sd, rng, n_points: int, device) -> dict:
         "runs": runs_out}}
 
 
+# phase 29's runs: (path, bench flags), kitti_sem at the serving settings
+BENCH_RUNS = (
+    ("bench_device", ["--mode", "device", "--iters", "1536"]),
+    ("bench_single", ["--mode", "single"]),
+    ("bench_batched", ["--mode", "batched", "--batch", "16"]),
+    ("bench_train_B2", ["--mode", "train", "--batch", "2"]),
+    ("bench_train_B16", ["--mode", "train", "--batch", "16"]),
+    ("bench_replay", ["--mode", "replay"]),
+    ("bench_stream", ["--mode", "stream"]),
+)
+BENCH_TIMEOUT_S = 300.0
+
+
+def bench_lines(argv: list) -> list:
+    """The JSON lines `bench.main(argv)` prints, run in this process."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(argv)
+    require(rc == 0, f"bench {argv} returned {rc}")
+    return [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith("{")]
+
+
+def check_bench_line(line: dict, what: str, platform: str = "gpu") -> None:
+    """A bench line ran on the card and every rate in it is finite, > 0."""
+    require(line["device"]["platform"] == platform,
+            f"{what}: ran on {line['device']}")
+    rates = [line["value"], *line["runs_hz"]]
+    if "eager" in line:
+        rates += [line["eager"]["value"], *line["eager"]["runs_hz"]]
+    require(all(np.isfinite(r) and r > 0 for r in rates),
+            f"{what}: rates {rates}")
+    if line.get("engine") == "graph":
+        require(line["replays"] == line["scans"] > 0,
+                f"{what}: the graph engine replayed {line['replays']} of "
+                f"its {line['scans']} scans")
+        require(line["eager"]["replays"] == 0,
+                f"{what}: the eager engine replayed a graph")
+
+
+def bench_launches(line: dict, path: str) -> dict:
+    """The launches of one bench run: every kernel of its mode's path
+    exactly as often as the line's counts say, no other."""
+    if line["mode"] == "batched":
+        want = dict.fromkeys((K3, K2), line["calls"])
+    elif line["mode"] == "train":
+        want = dict.fromkeys((K3, K5, K6), line["steps"])
+    else:
+        want = dict.fromkeys(
+            (K1, K3, K2), line["eager_scans"] + line["eager"]["eager_scans"])
+    launches = read_launches(tuple(want), path)
+    for fn, k in want.items():
+        require(fn.launches == k, f"{fn.__name__} launched {fn.launches} "
+                                  f"times on the {path} path, not {k}")
+    return launches
+
+
+def bench_phase(device) -> dict:
+    """Phase 29: the bench's modes in-process and `--mode device` as
+    shipped."""
+    out = {"phase": "bench", "card": card() if device == "cuda" else "cpu",
+           "runs": {}}
+    launches = {}
+    where = [] if device == "cuda" else ["--device", str(device)]
+    for path, flags in BENCH_RUNS:
+        reset_launches()
+        t0 = time.perf_counter()
+        lines = bench_lines([*flags, "--watchdog", "0", *where])
+        seconds = time.perf_counter() - t0
+        require(len(lines) == 1, f"{path}: {len(lines)} lines")
+        line = lines[0]
+        check_bench_line(line, path, "gpu" if device == "cuda" else "cpu")
+        launches[path] = bench_launches(line, path)
+        out["runs"][path] = {
+            "value": line["value"], "runs_hz": line["runs_hz"],
+            "seconds": seconds,
+            **{k: line[k] for k in ("engine", "scans", "replays",
+                                    "eager_scans", "calls", "steps")
+               if k in line},
+            **({"eager": {k: line["eager"][k] for k in
+                          ("value", "runs_hz", "scans", "eager_scans")}}
+               if "eager" in line else {})}
+    t0 = time.perf_counter()
+    shipped = subprocess.run(
+        [sys.executable, "-m", "gndnet_tpu_torch.bench", "--mode", "device",
+         *where], cwd=REPO, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    require(shipped.returncode == 0, f"bench --mode device exit "
+            f"{shipped.returncode}: {shipped.stderr[-2000:]}")
+    lines = [json.loads(x) for x in shipped.stdout.splitlines()
+             if x.startswith("{")]
+    require(len(lines) == 1, f"bench --mode device printed {len(lines)} "
+                             "lines")
+    check_bench_line(lines[0], "bench --mode device",
+                     "gpu" if device == "cuda" else "cpu")
+    out["shipped_device"] = {"value": lines[0]["value"],
+                             "runs_hz": lines[0]["runs_hz"],
+                             "eager": lines[0]["eager"]["value"],
+                             "seconds": time.perf_counter() - t0}
+    return {"launches": launches, "result": out}
+
+
 REPLACES = {
     "cluster_radix_sort_i32": ("gndnet_tpu/ops/pallas_sort.py:230",
                                "gndnet_tpu_torch/csrc/cluster_radix_sort.cu"),
@@ -2623,7 +2738,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-28 on `device`; returns the kernels line's entries."""
+    """Phases 3-29 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -2746,6 +2861,9 @@ def run(cfg, n_points: int, device) -> list:
     par = parallel_phase(cfg, sd, rng, n_points, device)
     paths.update(par["launches"])
     emit(par["result"])
+    benched = bench_phase(device)
+    paths.update(benched["launches"])
+    emit(benched["result"])
 
     kernels = []
     for row in rows:

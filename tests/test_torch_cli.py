@@ -27,6 +27,7 @@ from gndnet_tpu_torch.checkpoint import (BEST, CHECKPOINT,
                                          load_weights)
 from gndnet_tpu_torch.config import GndNetConfig, load_config
 from gndnet_tpu_torch.infer import GroundInferenceEngine
+from gndnet_tpu_torch.scripts import augmentation_demo as demo_cli
 from gndnet_tpu_torch.scripts import convert_checkpoint as convert_cli
 from gndnet_tpu_torch.scripts import plot_losses as plot_cli
 from gndnet_tpu_torch.scripts import predict as predict_cli
@@ -316,3 +317,44 @@ def test_convert_checkpoint_round_trips_bit_equal(trained, dataset,
     assert jax_load(str(t1), JaxConfig(**SMALL))["epoch"] == 2
     with pytest.raises(SystemExit):
         convert_cli.main(["--config", cfg_path, "--to-dir", str(d1)])
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["plain", "noise"])
+def test_augmentation_demo_matches_jax(tmp_path, monkeypatch, noise):
+    """The same argv through both demos, `render` captured on both sides
+    and every unseeded `np.random.default_rng()` seeded with 0: the
+    original and each augmented cloud array-equal, the same paths and
+    titles."""
+    rng = np.random.default_rng(0)
+    scan = np.zeros((3000, 4), np.float32)
+    scan[:, :2] = rng.uniform(-20, 20, (3000, 2))
+    scan[:, 2] = rng.uniform(-2.2, 0.5, 3000)
+    scan[:, 3] = rng.uniform(0, 1, 3000)
+    pcl = tmp_path / "scan.npy"
+    np.save(pcl, scan)
+    default_rng = np.random.default_rng
+    monkeypatch.setattr(np.random, "default_rng",
+                        lambda seed=None: default_rng(
+                            0 if seed is None else seed))
+    jax_demo = _jax_script("augmentation_demo")
+    rendered = {}
+    for side, module in (("jax", jax_demo), ("torch", demo_cli)):
+        calls = rendered[side] = []
+        monkeypatch.setattr(module, "render",
+                            lambda path, cloud, title, calls=calls:
+                            calls.append((os.path.basename(path), title,
+                                          np.array(cloud))))
+        argv = ["--config", "kitti_sem", "--pcl", str(pcl), "--n", "3",
+                "--out", str(tmp_path / side)] + (["--noise"] if noise
+                                                   else [])
+        if module is jax_demo:
+            monkeypatch.setattr(sys, "argv", ["augmentation_demo.py", *argv])
+            module.main()
+        else:
+            module.main(argv)
+    assert len(rendered["torch"]) == 4
+    for (jp, jt, jc), (tp, tt, tc) in zip(rendered["jax"], rendered["torch"],
+                                          strict=True):
+        assert (jp, jt) == (tp, tt)
+        np.testing.assert_array_equal(tc, jc)
+    assert not np.array_equal(rendered["torch"][1][2], scan)

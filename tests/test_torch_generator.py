@@ -297,10 +297,12 @@ def test_streaming_loader_stops_its_thread_when_abandoned(tmp_path):
         np.save(root / "gnd_labels" / f"{i:06d}.npy", np.zeros((4, 4)))
     loader = tprov.StreamingLoader(str(tmp_path), "training", batch_size=1,
                                    queue_depth=2)
+    # a reader of an earlier test's dropped epoch may still be exiting
+    earlier = set(threading.enumerate())
     it = loader.epoch(0)
     next(it)
     readers = [t for t in threading.enumerate()
-               if t.name == "StreamingLoader"]
+               if t.name == "StreamingLoader" and t not in earlier]
     assert len(readers) == 1
     readers[0].join(0.5)
     assert readers[0].is_alive()          # blocked on the full queue

@@ -67,9 +67,11 @@ def test_importing_the_port_loads_no_jax():
                  "parallel.mesh", "parallel.spatial", "parallel.tp",
                  "parallel.multihost", "parallel.collectives",
                  "parallel.rank_jobs", "utils.perf_model",
-                 "utils.profiling", "scripts.launch_multihost"):
+                 "utils.profiling", "scripts.launch_multihost", "bench",
+                 "scripts.augmentation_demo"):
         assert f"gndnet_tpu_torch.{name}" in out
     assert [m for m in out if _is_jax_side(m)] == []
+    assert "bench" not in out       # the JAX package's root bench.py
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -82,7 +84,7 @@ def test_sources_import_no_jax(path):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
-    assert [n for n in names if _is_jax_side(n)] == []
+    assert [n for n in names if _is_jax_side(n) or n == "bench"] == []
 
 
 @pytest.mark.parametrize("name", sorted(jcfg.PRESETS))
