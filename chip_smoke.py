@@ -70,10 +70,12 @@ Phases, each printing one JSON line:
      engine, which captures one CUDA graph of `run` for the padded
      kitti_sem shape, for 'affine' (bf16) and 'sorted' (graph outputs
      bit-equal to the eager engine's `run` over 20 scans) and 'scatter' as
-     shipped (within IMPL_ELEV_ATOL: atomics); no wrapper counts a
-     replay, torch.profiler's device records of a replay show K1, K3 and
-     K2 once ('affine') or K7 three times ('sorted') and no other kernel
-     of K1-K10, a scan of another bucket runs eagerly (K1-K3 counted);
+     shipped (within IMPL_ELEV_ATOL: atomics), and for fine_grid through
+     'affine' (6 scans, bit-equal); no wrapper counts a replay,
+     torch.profiler's device records of a replay show K1, K3 and K2 once
+     ('affine'), K10, K3 and K2 once (fine_grid) or K7 three times
+     ('sorted') and no other kernel of K1-K10, a scan of another bucket
+     runs eagerly (its kernels counted);
      host-clock scans/s eager against graph, device ms a scan, busy share;
  20. pipelined: `infer_pipelined(depth=3)` of 32 scans on the graph
      engine, bit-equal to `infer`; scans/s against sequential `infer`;
@@ -136,7 +138,32 @@ Phases, each printing one JSON line:
      graph's warm-up and capture included), batched K3 and K2 once a call
      (the batched sort, no K1), train K3, K5 and K6 once a step; each
      mode's launches go into `launches_by_path` as its path;
- 30. the kernels line, the card line, then the result line.
+ 30. graphs: every program the port captures as one CUDA graph per
+     shape on the card, against its eager version (`eager=True`) from
+     the same state and inputs, GRAPH_STEPS steps or calls each: the
+     train step at kitti_sem in bf16 'affine' at B=2 and B=16 (K3, K5,
+     K6), in f32 (K3, K4, K6), loss-scaled with a non-finite step (a NaN
+     label: skipped by both), augmented, all bit-equal, and as shipped
+     ('scatter', f32) with use_norm, on the fused and on the pillar path
+     (within IMPL_RTOL / IMPL_ATOL's allclose bound: atomics; the gap
+     reported); the eval step, `infer_many`'s `run_many` at K=4 and K=16
+     and `evaluate`'s RMSE batch (K3 and K2), bit-equal.  For each: the
+     wrappers count GRAPH_WARMUP + 1 launches of each kernel of its path
+     at the first call (warm-up and capture), torch.profiler's names show
+     each once a replay and no other of K1-K10, GRAPH_TIMED replays run
+     under `torch.cuda.set_sync_debug_mode("error")` (no host sync),
+     host-clock ms a call graph, eager, eager, graph, device ms, busy
+     share and device operations of each, the peak device memory of the
+     first graph call (warm-up, capture, replay) and of an eager call
+     above what was allocated before it; after `restore_checkpoint` and after the bench's
+     in-place restore, the next replay equals a fresh eager state's step
+     to the bit;
+ 31. the kernels line, the card line, then the result line.
+Phases 6-28 drive the train step, `infer_many` and the RMSE batch with
+`eager=True`, as they ran before these became CUDA graphs (a wrapper
+counts one launch a step or call there); the CLIs of phase 27 and the
+bench of phase 29 run the graphs, as a user does, and phase 30 holds
+every graph against eager.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device the script exits with code 2.
 """
@@ -178,6 +205,7 @@ from gndnet_tpu_torch.synthetic import (synthetic_labelled_batch,
                                         synthetic_scan,
                                         synthetic_semantic_kitti_scan,
                                         write_semantic_kitti_sequence)
+from gndnet_tpu_torch.utils.graphs import GRAPH_WARMUP
 from gndnet_tpu_torch.weights import init_state_dict
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -768,7 +796,7 @@ def train_phase(cfg, sd, rng) -> dict:
     points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
                                               cfg.num_points)
     state = train.create_train_state(cfg, 100, state_dict=sd)
-    step = train.make_train_step(cfg)
+    step = train.make_train_step(cfg, eager=True)
     before = params_of(state)
     state, loss = step(state, points, labels)           # warm: cuDNN plans
     require(bool(torch.isfinite(loss)), "first train loss finite")
@@ -829,7 +857,7 @@ def train_parity(cfg, sd, rng) -> dict:
                                               cfg.num_points)
     kern = train.create_train_state(cfg32, 100, state_dict=sd)
     plain = train.create_train_state(cfg32, 100, state_dict=sd)
-    step_k = train.make_train_step(cfg32)
+    step_k = train.make_train_step(cfg32, eager=True)
     step_p = train.make_train_step(cfg32, reference=True)
     prev = (torch.backends.cudnn.deterministic,
             torch.backends.cudnn.benchmark)
@@ -1271,10 +1299,10 @@ def serve_many(runs, device) -> dict:
     out, paths = {"phase": "serve_many"}, {}
     for name, cfg, sd, scans in runs:
         engine = GroundInferenceEngine(cfg, sd, device=device)
-        engine.infer_many(scans)                     # warm: cuDNN plans
+        engine.infer_many(scans, eager=True)         # warm: cuDNN plans
         reset_launches()
         t0 = time.perf_counter()
-        many = engine.infer_many(scans)
+        many = engine.infer_many(scans, eager=True)
         elapsed = time.perf_counter() - t0
         paths[f"serve_many_{name}"] = read_launches((K3, K2),
                                                     f"serve_many_{name}")
@@ -1311,7 +1339,7 @@ def train_fine_grid(cfg, sd, rng, device) -> dict:
     points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
                                               cfg.num_points)
     state = train.create_train_state(cfg, 100, state_dict=sd, device=device)
-    step = train.make_train_step(cfg)
+    step = train.make_train_step(cfg, eager=True)
     before = params_of(state)
     state, loss = step(state, points, labels)           # warm: cuDNN plans
     reset_launches()
@@ -1362,7 +1390,7 @@ def train_scatter(rng, device) -> dict:
         state = train.create_train_state(
             cfg, 100, state_dict=init_state_dict(cfg, seed=SEED),
             device=device)
-        step = train.make_train_step(cfg)
+        step = train.make_train_step(cfg, eager=True)
         before = params_of(state)
         norm_before = pfn_norm_state(state) if use_norm else {}
         reset_launches()
@@ -1404,7 +1432,7 @@ def presets(rng, device) -> dict:
             state = train.create_train_state(
                 c, 10, state_dict=init_state_dict(c, seed=SEED),
                 device=device)
-            _, loss = train.make_train_step(c)(
+            _, loss = train.make_train_step(c, eager=True)(
                 state, *synthetic_labelled_batch(c, rng, TRAIN_BATCH,
                                                  c.num_points))
             losses[f"use_norm_{use_norm}"] = float(loss)
@@ -1431,6 +1459,7 @@ KERNEL_NAMES = {
            r"|global_stage\(long long\*",
 }
 AOT_SCANS = 20
+FINE_AOT_SCANS = 6       # fine_grid scans of serve_aot's graph case
 PIPELINE_SCANS = 32
 STREAM_SCANS = 16
 STREAM_TIMEOUT_S = 60.0
@@ -1583,20 +1612,34 @@ def graph_case(name, cfg, sd, scans, other, n_points, device, want,
     }, served, launched
 
 
-def serve_aot(cfg, sd, rng, n_points, device) -> dict:
-    """Phase 19: the warm start for 'affine', 'sorted' and 'scatter'."""
+def serve_aot(cfg, sd, rng, n_points, device, fine) -> dict:
+    """Phase 19: the warm start for 'affine', 'sorted' and 'scatter' at
+    kitti_sem, and 'affine' at fine_grid (`fine`: its serving config and
+    weights; the packed key overflows, so K10 sorts the pairs)."""
     scans = [synthetic_scan(cfg, rng, n_points) for _ in range(AOT_SCANS)]
     other = synthetic_scan(cfg, rng, n_points + 2 * 4096)
     shipped = SHIPPED["kitti_sem"]()
-    cases = (("affine", cfg, sd, {"K1": 1, "K3": 1, "K2": 1}),
-             ("sorted", cfg.replace(fused_impl="sorted"), sd, {"K7": 3}),
-             ("scatter", shipped, init_state_dict(shipped, seed=SEED), {}))
+    fine_cfg, fine_sd = fine
+    # their own generator: the later phases keep the data `rng` gave them
+    # before this case came
+    fine_rng = np.random.default_rng(SEED + 1)
+    fine_scans = [synthetic_scan(fine_cfg, fine_rng, n_points)
+                  for _ in range(FINE_AOT_SCANS)]
+    cases = (("affine", cfg, sd, {"K1": 1, "K3": 1, "K2": 1}, scans, other),
+             ("sorted", cfg.replace(fused_impl="sorted"), sd, {"K7": 3},
+              scans, other),
+             ("scatter", shipped, init_state_dict(shipped, seed=SEED), {},
+              scans, other),
+             ("fine_grid_affine", fine_cfg, fine_sd,
+              {"K10": 1, "K3": 1, "K2": 1}, fine_scans,
+              synthetic_scan(fine_cfg, fine_rng, n_points + 2 * 4096)))
     out = {"phase": "serve_aot", "elevation_atol_scatter": IMPL_ELEV_ATOL}
     paths, engines = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, c, weights, want in cases:
+        for name, c, weights, want, served, bigger in cases:
             out[name], engines[name], launched = graph_case(
-                name, c, weights, scans, other, n_points, device, want, tmp)
+                name, c, weights, served, bigger, n_points, device, want,
+                tmp)
             paths[f"serve_aot_{name}_other_bucket"] = launched
     return {"launches": paths, "result": out, "engine": engines["affine"],
             "scans": scans}
@@ -1831,7 +1874,7 @@ def evaluate_phase(cfg, sd, seq: str, gen_out: str, device) -> dict:
     reset_launches()
     t0 = time.perf_counter()
     rmse = evaluate.evaluate_height_rmse(cfg, sd, gen_out, split="sequences",
-                                         device=device)
+                                         device=device, eager=True)
     rmse_s = time.perf_counter() - t0
     launches["evaluate_height_rmse"] = read_launches((K3, K2),
                                                      "evaluate_height_rmse")
@@ -1916,7 +1959,7 @@ def train_augmented(raw: str, root: str, device) -> dict:
     sd = init_state_dict(cfg, seed=SEED)
     state = train.create_train_state(cfg, len(loader), state_dict=sd,
                                      device=device)
-    step = train.make_train_step(cfg, augment=True)
+    step = train.make_train_step(cfg, augment=True, eager=True)
     feed = prefetch_to_device(stream(AUG_STEPS + 1), device)
     warm = next(feed)
     state, loss = step(state, *warm)                     # cuDNN plans
@@ -1942,7 +1985,7 @@ def train_augmented(raw: str, root: str, device) -> dict:
     state, aug_losses, aug_ms = timed_steps(step, state, staged)
     plain = train.create_train_state(cfg, len(loader), state_dict=sd,
                                      device=device)
-    plain_step = train.make_train_step(cfg)
+    plain_step = train.make_train_step(cfg, eager=True)
     plain, _ = plain_step(plain, *warm)
     plain, plain_losses, plain_ms = timed_steps(plain_step, plain, staged)
     require(all(np.isfinite(aug_losses + plain_losses)),
@@ -2019,7 +2062,8 @@ def earliest_pillars_kept(scan: np.ndarray, cfg, pb) -> dict:
 def pillar_step(cfg, sd, points, labels, device, use_pillar_path=True):
     state = train.create_train_state(cfg, 100, state_dict=sd, device=device)
     before = params_of(state)
-    step = train.make_train_step(cfg, use_pillar_path=use_pillar_path)
+    step = train.make_train_step(cfg, use_pillar_path=use_pillar_path,
+                                 eager=True)
     (state, loss), ms, peak = peak_memory_gb(
         lambda: step(state, points, labels))
     loss = float(loss)
@@ -2154,7 +2198,7 @@ def loss_scaling(cfg, sd, rng) -> dict:
     count."""
     points, labels = synthetic_labelled_batch(cfg, rng, TRAIN_BATCH,
                                               cfg.num_points)
-    step = train.make_train_step(cfg)
+    step = train.make_train_step(cfg, eager=True)
     warm = train.create_train_state(cfg, 100, state_dict=sd,
                                     loss_scaling=True)
     step(warm, points, labels)                         # warm: cuDNN plans
@@ -2184,7 +2228,7 @@ def loss_scaling(cfg, sd, rng) -> dict:
     top = float(np.finfo(np.float32).max)
     over.dynamic_scale.scale = top
     before = {k: v.clone() for k, v in over.model.state_dict().items()}
-    _, over_loss = train.make_train_step(over_cfg)(
+    _, over_loss = train.make_train_step(over_cfg, eager=True)(
         over, points, np.asarray(labels) + 10.0)
     changed = [k for k, v in over.model.state_dict().items()
                if "num_batches" not in k and not torch.equal(v, before[k])]
@@ -2220,9 +2264,10 @@ def flat_yaml(cfg, path: str) -> str:
 def cli_phase(cfg, gen_out: str, root: str, device) -> dict:
     """Phase 27: the CLIs in-process on phase 22's generated pairs.
     `train --impl affine --bf16 --epochs 1 -s --train_skip 1 --valid_skip
-    1` (K5 and K6 once a step, K3 once a step and once a validation batch,
-    K2 once a validation batch), `-e` (resumed: K3 and K2 once a
-    validation batch), `predict` from the checkpoint directory under a
+    1` (its train and eval steps replay a CUDA graph per batch shape: K5
+    and K6 counted by the train graph's warm-up and capture, K3 by both
+    graphs', K2 by the eval graph's), `-e` (resumed: K3 and K2 by the eval
+    graph's), `predict` from the checkpoint directory under a
     YAML at the serving settings (K1, K3 and K2 once; elevation and labels
     equal to the engine's), `convert_checkpoint` both ways bit-equal."""
     from gndnet_tpu_torch.checkpoint import CheckpointManager, load_weights
@@ -2240,7 +2285,12 @@ def cli_phase(cfg, gen_out: str, root: str, device) -> dict:
             "--bf16"]
     frames = EVAL_FRAMES
     steps = frames // TRAIN_BATCH
-    batches = -(-frames // TRAIN_BATCH)
+    # the train and eval steps replay one CUDA graph per batch shape: a
+    # wrapper counts the warm-up and the capture of each shape
+    captured = GRAPH_WARMUP + 1
+    train_shapes = 1 if steps else 0
+    eval_shapes = len({min(TRAIN_BATCH, frames - i)
+                       for i in range(0, frames, TRAIN_BATCH)})
     out = {"phase": "cli", "card": card(), "frames": frames,
            "batch": TRAIN_BATCH}
     launches = {}
@@ -2250,8 +2300,10 @@ def cli_phase(cfg, gen_out: str, root: str, device) -> dict:
     torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t0
     launches["cli_train"] = read_launches((K3, K5, K6, K2), "cli_train")
-    for fn, k in ((K5, steps), (K6, steps), (K3, steps + batches),
-                  (K2, batches)):
+    for fn, k in ((K5, captured * train_shapes),
+                  (K6, captured * train_shapes),
+                  (K3, captured * (train_shapes + eval_shapes)),
+                  (K2, captured * eval_shapes)):
         require(fn.launches == k, f"train CLI: {fn.__name__} launched "
                                   f"{fn.launches} times, not {k}")
     require(np.isfinite(hist["lowest_loss"]), f"train CLI {hist}")
@@ -2261,8 +2313,8 @@ def cli_phase(cfg, gen_out: str, root: str, device) -> dict:
     evaluated = train_cli.main(base + ["-e"])
     launches["cli_evaluate"] = read_launches((K3, K2), "cli_evaluate")
     for fn in (K3, K2):
-        require(fn.launches == batches, f"-e: {fn.__name__} launched "
-                                        f"{fn.launches} times")
+        require(fn.launches == captured * eval_shapes,
+                f"-e: {fn.__name__} launched {fn.launches} times")
     d_valid = abs(evaluated["valid_loss"][-1] - hist["valid_loss"][-1])
     require(d_valid <= 1e-4 * abs(hist["valid_loss"][-1]),
             f"-e validation vs the trained run's: {d_valid}")
@@ -2476,7 +2528,7 @@ def parallel_phase(cfg, sd, rng, n_points: int, device) -> dict:
     try:
         single = train.create_train_state(cfg32, 100, state_dict=sd,
                                           device=device)
-        single_loss = float(train.make_train_step(cfg32)(
+        single_loss = float(train.make_train_step(cfg32, eager=True)(
             single, points, labels)[1])
         want_sd = {k: v.detach().cpu()
                    for k, v in single.model.state_dict().items()}
@@ -2606,20 +2658,33 @@ def check_bench_line(line: dict, what: str, platform: str = "gpu") -> None:
     require(all(np.isfinite(r) and r > 0 for r in rates),
             f"{what}: rates {rates}")
     if line.get("engine") == "graph":
-        require(line["replays"] == line["scans"] > 0,
-                f"{what}: the graph engine replayed {line['replays']} of "
-                f"its {line['scans']} scans")
+        # every call of a graphed program replays; the calls it made
+        # outside a replay are its warm-up and capture, once per shape
+        done, outside = {"train": ("steps", "eager_steps"),
+                         "batched": ("calls", "eager_calls")}.get(
+            line["mode"], ("scans", None))
+        require(line["replays"] == line[done] > 0,
+                f"{what}: the graph replayed {line['replays']} of its "
+                f"{line[done]} {done}")
+        if outside is not None:
+            require(line[outside] == GRAPH_WARMUP + 1,
+                    f"{what}: {line[outside]} {outside}, not one warm-up "
+                    "and capture")
+            require(line["eager"][outside] == line["eager"][done],
+                    f"{what}: the eager run's {outside}")
         require(line["eager"]["replays"] == 0,
-                f"{what}: the eager engine replayed a graph")
+                f"{what}: the eager run replayed a graph")
 
 
 def bench_launches(line: dict, path: str) -> dict:
     """The launches of one bench run: every kernel of its mode's path
     exactly as often as the line's counts say, no other."""
     if line["mode"] == "batched":
-        want = dict.fromkeys((K3, K2), line["calls"])
+        want = dict.fromkeys(
+            (K3, K2), line["eager_calls"] + line["eager"]["eager_calls"])
     elif line["mode"] == "train":
-        want = dict.fromkeys((K3, K5, K6), line["steps"])
+        want = dict.fromkeys(
+            (K3, K5, K6), line["eager_steps"] + line["eager"]["eager_steps"])
     else:
         want = dict.fromkeys(
             (K1, K3, K2), line["eager_scans"] + line["eager"]["eager_scans"])
@@ -2650,10 +2715,13 @@ def bench_phase(device) -> dict:
             "value": line["value"], "runs_hz": line["runs_hz"],
             "seconds": seconds,
             **{k: line[k] for k in ("engine", "scans", "replays",
-                                    "eager_scans", "calls", "steps")
+                                    "eager_scans", "calls", "eager_calls",
+                                    "steps", "eager_steps")
                if k in line},
             **({"eager": {k: line["eager"][k] for k in
-                          ("value", "runs_hz", "scans", "eager_scans")}}
+                          ("value", "runs_hz", "scans", "eager_scans",
+                           "calls", "eager_calls", "steps", "eager_steps")
+                          if k in line["eager"]}}
                if "eager" in line else {})}
     t0 = time.perf_counter()
     shipped = subprocess.run(
@@ -2673,6 +2741,356 @@ def bench_phase(device) -> dict:
                              "eager": lines[0]["eager"]["value"],
                              "seconds": time.perf_counter() - t0}
     return {"launches": launches, "result": out}
+
+
+GRAPH_STEPS = 3          # steps or calls of each program, graph vs eager
+GRAPH_TIMED = 10         # host-clock steps or calls, in turns
+GRAPH_REPS = 10          # profiled replays
+
+
+def bits(x) -> np.ndarray:
+    return x.detach().float().cpu().numpy()
+
+
+def same(a, b) -> bool:
+    return np.array_equal(bits(a), bits(b), equal_nan=True)
+
+
+def state_gap(a, b) -> float:
+    """The largest |a - b| over every tensor a train step changes
+    (`TrainState.tensors`), of the other's magnitude where it exceeds
+    IMPL_ATOL / IMPL_RTOL's allclose bound; 0.0 when all are equal."""
+    worst = 0.0
+    for x, y in zip(a.tensors(), b.tensors()):
+        if not torch.equal(x, y):
+            x, y = x.detach().double(), y.detach().double()
+            bound = IMPL_ATOL + IMPL_RTOL * y.abs()
+            worst = max(worst, float(((x - y).abs() / bound).max()))
+    return worst
+
+
+def no_sync(fn, calls: int) -> float:
+    """Host-clock ms a call of fn() over `calls` calls that must not sync
+    the host with the card (`torch.cuda.set_sync_debug_mode("error")`
+    raises on any), one synchronize after the window."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(calls):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def in_turns(graph_fn, eager_fn, calls: int) -> dict:
+    """Host-clock ms a call, graph, eager, eager, graph; device ms, busy
+    share and device operations a call of each by torch.profiler."""
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    host = [ms(fn) for fn in (graph_fn, eager_fn, eager_fn, graph_fn)]
+    prof = {name: kernel_times(fn, GRAPH_REPS)
+            for name, fn in (("graph", graph_fn), ("eager", eager_fn))}
+    return {"ms": {"graph": [host[0], host[3]], "eager": [host[1], host[2]]},
+            **{key: {name: prof[name].get(src) for name in prof}
+               for key, src in (("device_ms", "device_ms_per_call"),
+                                ("busy_share", "device_busy_share"),
+                                ("device_ops", "device_ops_per_call"))}}
+
+
+def replay_kernels(fn, want: dict, what: str) -> dict:
+    """K1-K10 in one call of fn (a replay) by profiler names: each of
+    `want` as often as it says, no other."""
+    ks = k_counts(device_kernels(fn, GRAPH_REPS))
+    for k, count in ks.items():
+        require(count == want.get(k, 0), f"{what}: {k} ran {count} times a "
+                                         f"replay, not {want.get(k, 0)}")
+    return ks
+
+
+def peak_above(fn) -> tuple:
+    """(fn's result, the peak device memory fn allocates above what was
+    allocated before it, in GiB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def captured_launches(want: dict, path: str) -> dict:
+    """The wrapper counts of a first graphed call: the warm-up and the
+    capture launch each kernel of the path, GRAPH_WARMUP + 1 times."""
+    launched = read_launches(tuple(KW[k] for k in want), path)
+    for k, count in want.items():
+        require(KW[k].launches == (GRAPH_WARMUP + 1) * count,
+                f"{path}: {k} counted {KW[k].launches} in the warm-up and "
+                "capture")
+    return launched
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(on: bool):
+    """cuDNN's deterministic algorithms inside the block when `on` (its
+    float32 backward algorithms otherwise sum with atomics, in an order
+    that differs from run to run)."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    if on:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def graph_train(name, cfg, sd, batches, want, rng, *, exact=True,
+                deterministic=False, **kw) -> tuple:
+    """`graph_train_steps` with cuDNN's deterministic algorithms when
+    `deterministic`."""
+    with deterministic_cudnn(deterministic):
+        res, launched, live = graph_train_steps(name, cfg, sd, batches, want,
+                                                rng, exact=exact, **kw)
+    res["cudnn_deterministic"] = deterministic
+    return res, launched, live
+
+
+def graph_train_steps(name, cfg, sd, batches, want, rng, *, exact=True,
+                      loss_scaling=False, augment=False, pillar=False,
+                      nan_step=None) -> tuple:
+    """One train step configuration: the graphed step against the eager
+    step from one state over GRAPH_STEPS device batches (bit-equal, or
+    within IMPL_*'s allclose bound where atomics order the sums: then a
+    second eager state gives eager's own gap beside it), the wrappers'
+    counts of its capture, its kernels a replay, a window of replays with
+    no host sync, times and peak memory."""
+    kw = dict(augment=augment, use_pillar_path=pillar)
+    g_step = train.make_train_step(cfg, **kw)
+    e_step = train.make_train_step(cfg, eager=True, **kw)
+    g, e, e2 = (train.create_train_state(cfg, 100, state_dict=sd,
+                                         loss_scaling=loss_scaling)
+                for _ in range(3))
+    losses, loss_gap, gap, self_gap, equal = [], 0.0, 0.0, 0.0, True
+    peak = {}
+    for s, (pts, lab) in enumerate(batches):
+        if s == nan_step:
+            lab = lab.clone()
+            lab[0, 3, 4] = float("nan")
+        if s == 0:
+            reset_launches()
+            t0 = time.perf_counter()
+            (_, lg), peak["graph"] = peak_above(lambda: g_step(g, pts, lab))
+            capture_s = time.perf_counter() - t0
+            launched = captured_launches(want, f"graphs_train_{name}")
+            (_, le), peak["eager"] = peak_above(lambda: e_step(e, pts, lab))
+        else:
+            _, lg = g_step(g, pts, lab)
+            _, le = e_step(e, pts, lab)
+        losses.append([float(lg), float(le)])
+        equal = equal and same(lg, le) and all(
+            torch.equal(x, y) for x, y in zip(g.tensors(), e.tensors()))
+        if exact:
+            require(same(lg, le), f"{name}: step {s} loss, graph "
+                                  f"{float(lg)} against eager {float(le)}")
+            require(all(torch.equal(x, y) for x, y in
+                        zip(g.tensors(), e.tensors())),
+                    f"{name}: step {s} state, graph against eager")
+        else:
+            loss_gap = max(loss_gap, abs(float(lg) - float(le))
+                           / (IMPL_ATOL + IMPL_RTOL * abs(float(le))))
+            gap = max(gap, state_gap(g, e))
+            e_step(e2, pts, lab)
+            self_gap = max(self_gap, state_gap(e2, e))
+    require(loss_gap <= 1.0 and gap <= 1.0,
+            f"{name}: graph against eager {loss_gap} / {gap} of the "
+            "IMPL_* bound")
+    require(g_step.replays == len(batches)
+            and g_step.eager_steps == GRAPH_WARMUP + 1
+            and e_step.replays == 0, f"{name}: replays {g_step.replays}")
+    require(g.step == e.step == int(g.step_t) == len(batches),
+            f"{name}: step count")
+    if nan_step is not None:
+        require(not np.isfinite(losses[nan_step][0])
+                and g.tx.count == len(batches) - 1
+                and g.dynamic_scale.scale == 32768.0,
+                f"{name}: the non-finite step was not skipped")
+    pts, lab = batches[0]
+    sync_ms = no_sync(lambda: g_step(g, pts, lab), GRAPH_TIMED)
+    kernels = replay_kernels(lambda: g_step(g, pts, lab), want, name)
+    times = in_turns(lambda: g_step(g, pts, lab),
+                     lambda: e_step(e, pts, lab), GRAPH_TIMED)
+    require(g_step.eager_steps == GRAPH_WARMUP + 1,
+            f"{name}: a step ran outside its graph")
+    return {"batch": int(pts.shape[0]), "fused_impl": cfg.fused_impl,
+            "compute_dtype": cfg.compute_dtype, "use_norm": cfg.use_norm,
+            "bit_equal": equal, "losses": losses,
+            "loss_gap_of_bound": loss_gap, "state_gap_of_bound": gap,
+            "eager_self_gap_of_bound": self_gap,
+            "capture_s": capture_s, "replays": g_step.replays,
+            "eager_steps": g_step.eager_steps, "no_sync_ms": sync_ms,
+            "replay_kernels": kernels, "peak_mem_gb_first_call": peak,
+            **times}, \
+        launched, (g, g_step, e_step)
+
+
+def graph_restore(cfg, sd, batches, live) -> dict:
+    """After a restore into the graphed state (`restore_checkpoint`, then
+    the bench's in-place restore), its next replay equals a fresh eager
+    state's step from the same checkpoint, to the bit."""
+    import copy
+
+    from gndnet_tpu_torch.checkpoint import (checkpoint_dict,
+                                             restore_checkpoint)
+
+    g, g_step, e_step = live
+    src = train.create_train_state(cfg, 100, state_dict=sd)
+    for pts, lab in batches[:2]:
+        e_step(src, pts, lab)
+    ckpt = checkpoint_dict(src, 1, 0.5)
+    pts, lab = batches[2]
+    out = {}
+    for how in ("restore_checkpoint", "bench_restore"):
+        ids = [t.data_ptr() for t in g.tensors()]
+        if how == "restore_checkpoint":
+            restore_checkpoint(ckpt, g)
+        else:
+            g.model.load_state_dict(copy.deepcopy(src.model.state_dict()))
+            g.tx.load_state_dict(copy.deepcopy(src.tx.state_dict()))
+            g.step = src.step
+        require([t.data_ptr() for t in g.tensors()] == ids,
+                f"{how}: a tensor of the state was replaced")
+        fresh = train.create_train_state(cfg, 100, state_dict=sd)
+        restore_checkpoint(ckpt, fresh)
+        replays = g_step.replays
+        _, lg = g_step(g, pts, lab)
+        _, le = e_step(fresh, pts, lab)
+        require(g_step.replays == replays + 1
+                and g_step.eager_steps == GRAPH_WARMUP + 1,
+                f"{how}: the step after it did not replay")
+        require(same(lg, le) and all(torch.equal(x, y) for x, y in
+                                     zip(g.tensors(), fresh.tensors())),
+                f"{how}: the replay differs from a fresh eager step")
+        out[how] = {"loss": float(lg), "bit_equal": True}
+    return out
+
+
+def graph_calls(name, graph_fn, eager_fn, inputs, want, path) -> tuple:
+    """A graphed device program (eval step, `infer_many`'s `run_many`,
+    the RMSE batch) against its eager version over GRAPH_STEPS inputs, to
+    the bit; the counts of its capture, its kernels a replay, a window of
+    replays with no host sync, and times."""
+    reset_launches()
+    t0 = time.perf_counter()
+    peak = {"graph": peak_above(lambda: graph_fn(*inputs[0]))[1]}
+    capture_s = time.perf_counter() - t0
+    launched = captured_launches(want, path)
+    peak["eager"] = peak_above(lambda: eager_fn(*inputs[0]))[1]
+    for args in inputs:
+        a, b = graph_fn(*args), eager_fn(*args)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        require(all(same(x, y) for x, y in zip(a, b)),
+                f"{name}: graph against eager")
+    sync_ms = no_sync(lambda: graph_fn(*inputs[0]), GRAPH_TIMED)
+    kernels = replay_kernels(lambda: graph_fn(*inputs[0]), want, name)
+    times = in_turns(lambda: graph_fn(*inputs[0]),
+                     lambda: eager_fn(*inputs[0]), GRAPH_TIMED)
+    return {"calls": len(inputs), "bit_equal": True, "capture_s": capture_s,
+            "no_sync_ms": sync_ms, "replay_kernels": kernels,
+            "peak_mem_gb_first_call": peak, **times}, \
+        launched
+
+
+def graphs_phase(cfg, sd, rng, n_points, device) -> dict:
+    """Phase 30: every captured program on the card against its eager
+    version (see the module docstring)."""
+    out = {"phase": "graphs", "card": card(), "steps": GRAPH_STEPS,
+           "impl_rtol": IMPL_RTOL, "impl_atol": IMPL_ATOL}
+    paths = {}
+
+    def dev_batches(c, b, n=GRAPH_STEPS):
+        return [tuple(torch.from_numpy(x).to(device) for x in
+                      synthetic_labelled_batch(c, rng, b, n_points))
+                for _ in range(n)]
+
+    cfg32 = cfg.replace(compute_dtype="float32", matmul_precision="highest")
+    shipped = SHIPPED["kitti_sem"]().replace(use_norm=True)
+    shipped_sd = init_state_dict(shipped, seed=SEED)
+    bf16 = {"K3": 1, "K5": 1, "K6": 1}
+    cases = (
+        ("bf16_B2", cfg, sd, TRAIN_BATCH, bf16, {}),
+        ("bf16_B16", cfg, sd, BENCH_BATCH, bf16, {}),
+        ("f32_B2", cfg32, sd, TRAIN_BATCH, {"K3": 1, "K4": 1, "K6": 1},
+         dict(deterministic=True)),
+        ("loss_scaled_B2", cfg, sd, TRAIN_BATCH, bf16,
+         dict(loss_scaling=True, nan_step=1)),
+        ("augmented_B2", cfg, sd, TRAIN_BATCH, bf16, dict(augment=True)),
+        ("scatter_use_norm_B2", shipped, shipped_sd, TRAIN_BATCH, {},
+         dict(exact=False, deterministic=True)),
+        ("pillar_path_use_norm_B2", shipped, shipped_sd, TRAIN_BATCH, {},
+         dict(exact=False, deterministic=True, pillar=True)),
+    )
+    train_out = {}
+    for name, c, weights, b, want, kw in cases:
+        batches = dev_batches(c, b)
+        train_out[name], paths[f"graphs_train_{name}"], live = graph_train(
+            name, c, weights, batches, want, rng, **kw)
+        if name == "bf16_B2":
+            out["restore"] = graph_restore(c, weights, batches, live)
+        del live
+        torch.cuda.empty_cache()
+    out["train"] = train_out
+
+    state = train.create_train_state(cfg, 100, state_dict=sd)
+    g_eval, e_eval = (train.make_eval_step(cfg, eager=eager)
+                      for eager in (False, True))
+    out["eval_B2"], paths["graphs_eval"] = graph_calls(
+        "eval", lambda p, l: g_eval(state, p, l),
+        lambda p, l: e_eval(state, p, l), dev_batches(cfg, TRAIN_BATCH),
+        {"K3": 1, "K2": 1}, "graphs_eval")
+
+    engine = GroundInferenceEngine(cfg, sd, device=device)
+    scans = [synthetic_scan(cfg, rng, n_points) for _ in range(16)]
+    for k in (4, 16):
+        stacks = [engine._upload(np.stack([engine._prepare(s)[0] for s in
+                                           scans[i:] + scans[:i]][:k]))
+                  for i in range(GRAPH_STEPS)]
+        res, paths[f"graphs_infer_many_K{k}"] = graph_calls(
+            f"infer_many_K{k}", engine._many, engine.run_many,
+            [(x,) for x in stacks], {"K3": 1, "K2": 1},
+            f"graphs_infer_many_K{k}")
+        many = engine.infer_many(scans[:k])
+        plain = engine.infer_many(scans[:k], eager=True)
+        require(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(many, plain)),
+                f"infer_many K={k}: graph against eager")
+        times = {}
+        for eager in (False, True, True, False):
+            t0 = time.perf_counter()
+            engine.infer_many(scans[:k], eager=eager)
+            times.setdefault("eager" if eager else "graph", []).append(
+                (time.perf_counter() - t0) * 1e3)
+        res["infer_many_ms"] = times
+        out[f"infer_many_K{k}"] = res
+
+    rmse = evaluate.batch_rmse_program(engine.model)
+    plain_rmse = evaluate.batch_rmse_program(engine.model, eager=True)
+    out["rmse_B2"], paths["graphs_rmse"] = graph_calls(
+        "rmse", rmse, plain_rmse, dev_batches(cfg, TRAIN_BATCH),
+        {"K3": 1, "K2": 1}, "graphs_rmse")
+    del engine, state, rmse
+    torch.cuda.empty_cache()
+    return {"launches": paths, "result": out}
 
 
 REPLACES = {
@@ -2738,7 +3156,7 @@ def main() -> int:
 
 
 def run(cfg, n_points: int, device) -> list:
-    """Phases 3-29 on `device`; returns the kernels line's entries."""
+    """Phases 3-30 on `device`; returns the kernels line's entries."""
     rng = np.random.default_rng(SEED)
     sd = init_state_dict(cfg, seed=SEED)
     set_bn_stats(sd, rng)
@@ -2835,7 +3253,8 @@ def run(cfg, n_points: int, device) -> list:
     profiled = profile_phase(setup)
     paths["profile_affine"] = profiled["launches"]
     emit(profiled["result"])
-    aot = serve_aot(cfg, sd, rng, n_points, device)
+    aot = serve_aot(cfg, sd, rng, n_points, device,
+                    (fine_aff, fine_aff_sd))
     paths.update(aot["launches"])
     emit(aot["result"])
     emit(pipelined(aot["engine"], aot["scans"], rng, n_points))
@@ -2864,6 +3283,9 @@ def run(cfg, n_points: int, device) -> list:
     benched = bench_phase(device)
     paths.update(benched["launches"])
     emit(benched["result"])
+    graphed = graphs_phase(cfg, sd, rng, n_points, device)
+    paths.update(graphed["launches"])
+    emit(graphed["result"])
 
     kernels = []
     for row in rows:

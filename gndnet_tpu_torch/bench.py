@@ -15,7 +15,13 @@ its mode (`metric`, `value`, `unit`, `vs_baseline` against the reference's
 * for the serving modes, the engine that gave `value` and its counts:
   `scans` it served, `replays` of its CUDA graph and `eager_scans` it ran
   eagerly (the graph's warm-up and capture included); and under `eager`
-  the same measurement through an engine without a graph.
+  the same measurement through an engine without a graph;
+* for `train`, `batched` and `e2e --burst`, `value` is the program
+  replayed as one CUDA graph per shape (the train step, the B=`--batch`
+  forward, `infer_many`), with its `replays` and the calls it ran
+  outside a replay (`eager_steps`, `eager_calls`, `eager_scans`: the
+  warm-up and the capture), and the same program run eagerly under
+  `eager`.
 
 The unit of work is one 100 000-point scan: shift, bin, PFN, canvas,
 SegNet, elevation map, per-point labels.  `device`, `e2e` / `single`,
@@ -60,6 +66,7 @@ from gndnet_tpu_torch.ops.postproc import segment_cloud
 from gndnet_tpu_torch.profile_serve import card
 from gndnet_tpu_torch.serving.replay import replay, replay_device
 from gndnet_tpu_torch.utils.compile_cache import enable_compilation_cache
+from gndnet_tpu_torch.utils.graphs import GraphCache
 from gndnet_tpu_torch.utils.perf_model import perf_accounting
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -142,9 +149,10 @@ def transfer_budget(engine: GroundInferenceEngine, cfg: GndNetConfig,
 
 
 class CountingEngine(GroundInferenceEngine):
-    """The serving engine, counting the scans it serves (`_dispatch`) and
-    those it runs eagerly (`run_many`, which `run`, `warmup` and the
-    graph's warm-up and capture reach; never a graph replay).  One thread
+    """The serving engine, counting the scans it serves (`_dispatch`,
+    `infer_many`) and those it runs eagerly (`run_many`, which `run`,
+    `warmup` and the graphs' warm-ups and captures reach; never a graph
+    replay).  One thread
     serves at a time in every mode, so the counts need no lock."""
 
     def __init__(self, *args, **kwargs):
@@ -156,6 +164,10 @@ class CountingEngine(GroundInferenceEngine):
         self.served += 1
         return super()._dispatch(padded)
 
+    def infer_many(self, scans, eager: bool = False) -> list:
+        self.served += len(scans)
+        return super().infer_many(scans, eager=eager)
+
     def run_many(self, padded: torch.Tensor, reference: bool = False):
         self.eager_scans += padded.shape[0]
         return super().run_many(padded, reference=reference)
@@ -163,7 +175,8 @@ class CountingEngine(GroundInferenceEngine):
     def counts(self) -> dict:
         graph = self._graph[1] if self._graph is not None else None
         return {"scans": self.served,
-                "replays": graph.replays if graph is not None else 0,
+                "replays": ((graph.replays if graph is not None else 0)
+                            + self._many.replays),
                 "eager_scans": self.eager_scans}
 
 
@@ -263,8 +276,9 @@ def bench_e2e(cfg: GndNetConfig, state_dict, iters: int,
     """The host-to-card-to-host loop: `infer_pipelined(depth=3)` over
     `iters` host scans (32 distinct buffers, z moved by 1e-4 each), after
     one warm `infer`, through each engine of `engines`.  `burst` > 1 serves
-    that many scans a call through `infer_many`, which has no graph: the
-    eager engine alone then.  Returns ({engine name: {"hz", "runs_hz",
+    that many scans a call through `infer_many`, after one warm burst
+    (which captures its graph): replaying its CUDA graph ("graph"), then
+    with `eager=True` ("eager").  Returns ({engine name: {"hz", "runs_hz",
     counts}}, transfer budget)."""
     device = resolve_device(device)
     kwargs = dict(threshold=0.08, shift_cloud=True,
@@ -274,17 +288,21 @@ def bench_e2e(cfg: GndNetConfig, state_dict, iters: int,
     scans = [scan + np.float32(i * 1e-4) for i in range(min(iters, 32))]
     out, budget = {}, None
     if burst > 1:
-        engine = CountingEngine(cfg, state_dict, device=device, **kwargs)
-        budget = transfer_budget(engine, cfg, scan.shape[0])
-        engine.infer_many([scans[j % len(scans)] for j in range(burst)])
-        t0 = time.perf_counter()
-        done = 0
-        for i in range(max(1, iters // burst)):
-            done += len(engine.infer_many(
-                [scans[(i * burst + j) % len(scans)] for j in range(burst)]))
-        hz = done / (time.perf_counter() - t0)
-        return {"eager": {"hz": hz, "runs_hz": [hz],
-                          **engine.counts()}}, budget
+        for name in ("graph", "eager"):
+            engine = CountingEngine(cfg, state_dict, device=device, **kwargs)
+            budget = transfer_budget(engine, cfg, scan.shape[0])
+            eager = name == "eager"
+            engine.infer_many([scans[j % len(scans)] for j in range(burst)],
+                              eager=eager)
+            t0 = time.perf_counter()
+            done = 0
+            for i in range(max(1, iters // burst)):
+                done += len(engine.infer_many(
+                    [scans[(i * burst + j) % len(scans)]
+                     for j in range(burst)], eager=eager))
+            hz = done / (time.perf_counter() - t0)
+            out[name] = {"hz": hz, "runs_hz": [hz], **engine.counts()}
+        return out, budget
     for name, engine in engines(cfg, state_dict, device, **kwargs):
         budget = transfer_budget(engine, cfg, scan.shape[0])
         engine.infer(scans[0])
@@ -305,8 +323,10 @@ def bench_batched(cfg: GndNetConfig, state_dict, iters: int,
     rate = ring_size * batch / the fastest pass.  Each slot's scans are
     the one scan with z moved by a uniform draw in [0, 1e-4) from a
     `torch.Generator` seeded with 0 (not `bench.py`'s `PRNGKey(0)`
-    draws, which another generator cannot give).  Returns {"hz",
-    "runs_hz", "anchor", "calls"}."""
+    draws, which another generator cannot give).  Runs through one CUDA
+    graph of the call ("graph", `utils.graphs.GraphCache`; eager on the
+    CPU), then eagerly ("eager").  Returns {name: {"hz", "runs_hz",
+    "anchor", "calls", "replays", "eager_calls"}}."""
     device = resolve_device(device)
     ring_size = ring_size or max(4, BATCHED_RING_SCANS // batch)
     model = GroundEstimatorNet(cfg, device=device)
@@ -316,29 +336,37 @@ def bench_batched(cfg: GndNetConfig, state_dict, iters: int,
     jit_z = torch.rand((ring_size, batch, 1, 1), generator=gen) * 1e-4
     sel = torch.zeros(scan.shape[-1], dtype=torch.float32, device=device)
     sel[2] = 1
-    ring = scan[None, None] + jit_z.to(device) * sel
-    calls = 0
+    base = scan[None, None] + jit_z.to(device) * sel
+    out = {}
+    for name in ("graph", "eager"):
+        graph = GraphCache(model.fused) if name == "graph" else None
+        fused = graph or model.fused
+        ring = base.clone()
+        calls = 0
 
-    def one_pass() -> float:
-        nonlocal calls
-        acc = torch.zeros((), dtype=torch.float32, device=device)
-        for pts in ring:
-            acc += model.fused(pts).sum()
-            calls += 1
-        sync(device)
-        return float(acc)
+        def one_pass() -> float:
+            nonlocal calls
+            acc = torch.zeros((), dtype=torch.float32, device=device)
+            for pts in ring:
+                acc += fused(pts).sum()
+                calls += 1
+            sync(device)
+            return float(acc)
 
-    anchor = one_pass()
-    times = []
-    for _ in range(max(3, iters // ring_size)):
-        ring[..., 2] += 1e-6
-        sync(device)
-        t0 = time.perf_counter()
         anchor = one_pass()
-        times.append(time.perf_counter() - t0)
-    return {"hz": ring_size * batch / min(times),
-            "runs_hz": [ring_size * batch / t for t in times],
-            "anchor": anchor, "calls": calls}
+        times = []
+        for _ in range(max(3, iters // ring_size)):
+            ring[..., 2] += 1e-6
+            sync(device)
+            t0 = time.perf_counter()
+            anchor = one_pass()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"hz": ring_size * batch / min(times),
+                     "runs_hz": [ring_size * batch / t for t in times],
+                     "anchor": anchor, "calls": calls,
+                     "replays": graph.replays if graph else 0,
+                     "eager_calls": graph.eager_calls if graph else calls}
+    return out
 
 
 def bench_train(cfg: GndNetConfig, iters: int, batch: int = 16,
@@ -348,15 +376,15 @@ def bench_train(cfg: GndNetConfig, iters: int, batch: int = 16,
     i * 1e-6), each anchored on the summed losses plus a sum over the
     parameters; one warm run, then the best of TRAIN_RUNS.  The step
     updates the state in place, so the parameters, buffers, optimizer
-    and step count are restored from a copy before every run, outside
-    the timed window: every run starts from the same state.  The fixture's
-    frames (tiled over the batch, with their labels) where the fixture is
-    there and its grid matches, else the scan broadcast to B with zero
-    labels.  Returns {"hz", "runs_hz", "anchor", "steps",
-    "first_losses"}."""
+    and step count are restored in place from a copy before every run,
+    outside the timed window: every run starts from the same state.  The
+    fixture's frames (tiled over the batch, with their labels) where the
+    fixture is there and its grid matches, else the scan broadcast to B
+    with zero labels.  First through the step's CUDA graph ("graph"; the
+    warm run captures it), then with `eager=True` ("eager"), each from the
+    same state.  Returns {name: {"hz", "runs_hz", "anchor", "steps",
+    "first_losses", "replays", "eager_steps"}}."""
     device = resolve_device(device)
-    state = tr.create_train_state(cfg, steps_per_epoch=100, device=device)
-    step = tr.make_train_step(cfg)
     frames = None if sparse_beams else load_fixture_frames(cfg)
     if frames is not None and frames[1].shape[-2:] == (cfg.ny, cfg.nx):
         clouds, lbls = frames
@@ -369,40 +397,48 @@ def bench_train(cfg: GndNetConfig, iters: int, batch: int = 16,
     pts = torch.from_numpy(pts).to(device)
     labels = torch.from_numpy(labels).to(device)
     reps = max(4, min(iters, 16))
+    state = tr.create_train_state(cfg, steps_per_epoch=100, device=device)
     saved = (copy.deepcopy(state.model.state_dict()),
              copy.deepcopy(state.tx.state_dict()), state.step)
 
     def restore() -> None:
         model_sd, tx_sd, step_count = saved
         state.model.load_state_dict(model_sd)
-        state.tx.load_state_dict(copy.deepcopy(tx_sd))
+        state.tx.load_state_dict(tx_sd)
         state.step = step_count
 
-    def chained() -> tuple:
-        acc = torch.zeros((), dtype=torch.float32, device=device)
-        losses = []
-        for i in range(reps):
-            _, loss = step(state, pts + i * 1e-6, labels)
-            losses.append(loss)
-            acc += loss
-        for p in state.model.parameters():
-            acc += p.detach().float().sum()
-        sync(device)
-        return float(acc), losses[0]
+    out = {}
+    for name in ("graph", "eager"):
+        step = tr.make_train_step(cfg, eager=name == "eager")
 
-    chained()
-    times, first_losses = [], []
-    for _ in range(TRAIN_RUNS):
+        def chained() -> tuple:
+            acc = torch.zeros((), dtype=torch.float32, device=device)
+            losses = []
+            for i in range(reps):
+                _, loss = step(state, pts + i * 1e-6, labels)
+                losses.append(loss)
+                acc += loss
+            for p in state.model.parameters():
+                acc += p.detach().float().sum()
+            sync(device)
+            return float(acc), losses[0]
+
         restore()
-        sync(device)
-        t0 = time.perf_counter()
-        anchor, first = chained()
-        times.append(time.perf_counter() - t0)
-        first_losses.append(float(first))
-    return {"hz": reps * batch / min(times),
-            "runs_hz": [reps * batch / t for t in times],
-            "anchor": anchor, "steps": (TRAIN_RUNS + 1) * reps,
-            "first_losses": first_losses}
+        chained()
+        times, first_losses = [], []
+        for _ in range(TRAIN_RUNS):
+            restore()
+            sync(device)
+            t0 = time.perf_counter()
+            anchor, first = chained()
+            times.append(time.perf_counter() - t0)
+            first_losses.append(float(first))
+        out[name] = {"hz": reps * batch / min(times),
+                     "runs_hz": [reps * batch / t for t in times],
+                     "anchor": anchor, "steps": (TRAIN_RUNS + 1) * reps,
+                     "first_losses": first_losses, "replays": step.replays,
+                     "eager_steps": step.eager_steps}
+    return out
 
 
 def bench_accuracy(cfg: GndNetConfig, epochs: int = 150, holdout: int = 4,
@@ -552,9 +588,9 @@ def device_info(device: torch.device) -> dict:
 
 
 def served(results: dict) -> tuple:
-    """(value, extras) of a serving mode: the graph engine's rate and
-    counts (the eager engine's where it alone ran), and the eager engine's
-    under `eager` with its rate as `value`."""
+    """(value, extras) of a mode run through a graph and eagerly: the
+    graph's rate and counts (the eager run's where it alone ran), and the
+    eager run's under `eager` with its rate as `value`."""
     name = "graph" if "graph" in results else "eager"
     extra = {"engine": name, **results[name]}
     value = extra.pop("hz")
@@ -670,16 +706,14 @@ def run_mode(mode: str, args, cfg: GndNetConfig, state_dict, device,
                          f"{args.target_hz} Hz and host result fetch; "
                          "freewheel = unbounded submit rate")
     elif mode == "batched":
-        extra = bench_batched(cfg, state_dict, args.iters, batch=args.batch,
-                              device=device)
-        hz = extra.pop("hz")
+        hz, extra = served(bench_batched(cfg, state_dict, args.iters,
+                                         batch=args.batch, device=device))
         if accounting:
             extra.update(perf_accounting(cfg, hz, batch=args.batch))
     elif mode == "train":
-        extra = bench_train(cfg, args.iters, batch=args.batch,
-                            sparse_beams=args.config == "sparse_32beam",
-                            device=device)
-        hz = extra.pop("hz")
+        hz, extra = served(bench_train(
+            cfg, args.iters, batch=args.batch,
+            sparse_beams=args.config == "sparse_32beam", device=device))
         if accounting:
             extra.update(perf_accounting(cfg, hz, batch=args.batch,
                                          training=True))

@@ -2,7 +2,7 @@
 as its own process, the cases in turns, `--rounds` times, then each case's
 min / median / max.
 
-    python -m gndnet_tpu_torch.bench_turns [--rounds 3]
+    python -m gndnet_tpu_torch.bench_turns [--rounds 3] [--only CASE ...]
         [--out chiprun_out/bench_turns.jsonl] [-- <flags for every run>]
 
 Prints every bench line as it comes (with `case` and `round` added), then
@@ -77,12 +77,15 @@ def main(argv=None) -> list:
                                       "bench_turns")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every line here")
+    ap.add_argument("--only", action="append", default=[],
+                    help="run this case only (repeatable; default: all)")
     ap.add_argument("extra", nargs="*",
                     help="flags for every bench run, after --")
     args = ap.parse_args(argv)
+    cases = [(c, f) for c, f in CASES if not args.only or c in args.only]
     lines = []
     for rnd in range(args.rounds):
-        for case, flags in CASES:
+        for case, flags in cases:
             line = {"case": case, "round": rnd,
                     **run_case(case, flags, args.extra)}
             print(json.dumps(line), flush=True)

@@ -36,6 +36,7 @@ from gndnet_tpu_torch.data.provider import GroundDataset
 from gndnet_tpu_torch.infer import GroundInferenceEngine
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.ops.postproc import lidar_to_heightmap, lidar_to_img
+from gndnet_tpu_torch.utils.graphs import GraphCache
 
 GROUND_CLASSES = (40, 44, 48, 49, 60, 72)  # road/parking/sidewalk/other-ground/
                                            # lane-marking/terrain
@@ -166,22 +167,36 @@ def evaluate_semantic_kitti(cfg: GndNetConfig, state_dict, data_dir: str,
                            threshold, reference_compat, logger, device)
 
 
+def batch_rmse_program(model: GroundEstimatorNet, eager: bool = False):
+    """(clouds (B, N, F), labels (B, ny, nx)) -> per-frame height RMSE
+    (B,): one fused forward and the per-frame reduction, the JAX package's
+    jitted `batch_rmse`.  On the card one CUDA graph per batch shape
+    (`utils.graphs.GraphCache`) unless `eager`."""
+    def batch_rmse(clouds, labels):
+        pred = model.fused(clouds)
+        return torch.sqrt(((pred - labels) ** 2).mean(dim=(1, 2)))
+    return batch_rmse if eager else GraphCache(batch_rmse)
+
+
 def evaluate_height_rmse(cfg: GndNetConfig, state_dict, data_dir: str,
                          split: str = "validation", skip_frames: int = 1,
-                         logger=None, device=None) -> dict:
+                         logger=None, device=None,
+                         eager: bool = False) -> dict:
     """Height RMSE over a generated dataset (reduced_velo / gnd_labels
     pairs), against the elevation grids the model trains on.
 
     One fused forward per `cfg.batch_size` frames, with each frame's RMSE
-    reduced on the device; the last, ragged batch is padded by repeating
-    the last frame, and the padding is left out of the result.  Returns
-    {'frames', 'rmse', 'per_frame'}."""
+    reduced on the device (`batch_rmse_program`: on the card one CUDA
+    graph replay a batch, `eager=True` runs it eagerly); the last, ragged
+    batch is padded by repeating the last frame, and the padding is left
+    out of the result.  Returns {'frames', 'rmse', 'per_frame'}."""
     device = resolve_device(device)
     ds = GroundDataset(data_dir, split, skip_frames, cfg.input_features,
                        max_memory=cfg.max_memory * 2 ** 20,
                        logger=logger or logging.root)
     model = GroundEstimatorNet(cfg, device=device)
     model.load_state_dict(state_dict)
+    batch_rmse = batch_rmse_program(model, eager)
     bs = max(1, int(cfg.batch_size))
     n = len(ds)
     per_frame = []
@@ -191,9 +206,7 @@ def evaluate_height_rmse(cfg: GndNetConfig, state_dict, data_dir: str,
         full = np.concatenate([idx, np.full(pad, n - 1)]) if pad else idx
         clouds = torch.from_numpy(ds.data[full]).to(device)
         labels = torch.from_numpy(ds.labels[full]).to(device)
-        pred = model.fused(clouds)
-        rmses = torch.sqrt(((pred - labels) ** 2).mean(dim=(1, 2)))
-        rmses = rmses.cpu().numpy()[:len(idx)]
+        rmses = batch_rmse(clouds, labels).cpu().numpy()[:len(idx)]
         per_frame.extend(float(r) for r in rmses)
         if logger:
             for i, r in zip(idx, rmses):

@@ -15,7 +15,9 @@ and the compute stream waits on the copy's event, so copies overlap the
 previous scans' compute.  Where the JAX engine dispatches one compiled XLA
 executable a scan, the port launches each operation of `run` from Python;
 `aot_load` captures `run` as one CUDA graph for the artifact's padded shape,
-so a scan of that shape is one graph replay.
+so a scan of that shape is one graph replay.  `infer_many` replays one CUDA
+graph of `run_many` per (K, bucket) shape on a CUDA engine (JAX's
+`_run_many` jitted once per K).
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ from gndnet_tpu_torch import _ext, native
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.ops.postproc import segment_cloud
+from gndnet_tpu_torch.utils.graphs import GraphCache, StepGraph
 
 _PAD_SENTINEL = 1e9  # pads bin far out of range -> seg label -1, no pillar
 PIPELINE_DEPTH = 3   # infer_pipelined's default depth and the ring's slots
-GRAPH_WARMUP = 3     # eager calls on a side stream before a capture
 
 
 class _HostRing:
@@ -81,49 +83,6 @@ class _HostRing:
         compute.wait_event(done)
         dev.record_stream(compute)
         return dev
-
-
-class _ScanGraph:
-    """One CUDA graph of the engine's `run` for one padded input shape.
-
-    Captured after GRAPH_WARMUP eager calls on a side stream (they load
-    every kernel and take each one's first-launch set-up out of the
-    capture).  Each call fills the static input by a stream-ordered copy,
-    replays, and copies the static outputs out; a lock keeps fill, replay
-    and copy-out together, and the next fill waits on the last copy-out's
-    event, since the streaming thread and the caller may both serve.  The
-    serving path launches K1-K3 ('affine') or K7 ('sorted') and no K8 or
-    K9, whose wrappers take a host-side epoch a call that a replay would
-    repeat; a graph of a path that launched them would be wrong."""
-
-    def __init__(self, run, example: torch.Tensor):
-        dev = example.device
-        self.input = example.clone()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUP):
-                run(self.input)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA work does not void the capture
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.pred, self.labels = run(self.input)
-        self.done = torch.cuda.Event()
-        self.done.record()
-        self.lock = threading.Lock()
-        self.replays = 0
-
-    def __call__(self, padded: torch.Tensor):
-        with self.lock:
-            stream = torch.cuda.current_stream(padded.device)
-            stream.wait_event(self.done)
-            self.input.copy_(padded, non_blocking=True)
-            self.graph.replay()
-            out = self.pred.clone(), self.labels.clone()
-            self.done.record(stream)
-            self.replays += 1
-        return out
 
 
 class GroundInferenceEngine:
@@ -175,7 +134,8 @@ class GroundInferenceEngine:
         # the CPU engine copies nothing: no pinned memory, no stream
         self._ring = (_HostRing(self.device, PIPELINE_DEPTH)
                       if self.device.type == "cuda" else None)
-        self._graph = None      # (padded shape, _ScanGraph or None)
+        self._graph = None      # (padded shape, StepGraph or None)
+        self._many = GraphCache(self.run_many)   # infer_many's graphs
 
     def _pad(self, points: np.ndarray) -> np.ndarray:
         n = points.shape[0]
@@ -291,18 +251,21 @@ class GroundInferenceEngine:
         while inflight:
             yield self._fetch(*inflight.popleft())
 
-    def infer_many(self, scans) -> list:
+    def infer_many(self, scans, eager: bool = False) -> list:
         """Batched inference of a burst of scans in one device call: all
-        scans must fall into one padded bucket.  Returns [(elevation
-        (ny, nx) np.float32, labels (N_i,) np.int8), ...] in submission
-        order."""
+        scans must fall into one padded bucket.  The stack goes up through
+        a pinned ring slot, and on a CUDA engine a burst of K scans
+        replays the CUDA graph of `run_many` for its (K, bucket) shape,
+        captured at the first such burst (`eager=True` runs `run_many`
+        eagerly instead).  Returns [(elevation (ny, nx) np.float32, labels
+        (N_i,) np.int8), ...] in submission order."""
         prepared = [self._prepare(s) for s in scans]
         shapes = {p.shape for p, _ in prepared}
         if len(shapes) != 1:
             raise ValueError(f"scans fall into mixed buckets {shapes}; "
                              "pad or split the burst")
-        preds, labels = self.run_many(
-            torch.from_numpy(np.stack([p for p, _ in prepared])))
+        stack = self._upload(np.stack([p for p, _ in prepared]))
+        preds, labels = (self.run_many if eager else self._many)(stack)
         preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
         return [(preds[i], labels[i][:n])
                 for i, (_, n) in enumerate(prepared)]
@@ -355,7 +318,7 @@ class GroundInferenceEngine:
         if self.device.type != "cuda":
             return None
         padded, _ = self._prepare(self._plane(shape[0]))
-        return _ScanGraph(self.run, self._upload(padded))
+        return StepGraph(self.run, (self._upload(padded),))
 
     def _plane(self, n: int) -> np.ndarray:
         """A synthetic flat-plane scan of n points."""

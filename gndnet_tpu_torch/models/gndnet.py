@@ -70,8 +70,10 @@ class GroundEstimatorNet(nn.Module):
         coors = torch.as_tensor(coors, device=dev)
         num_points = torch.as_tensor(num_points, device=dev)
         mask = torch.as_tensor(mask, device=dev)
+        # (x, y) by a flip, not a list index: a list becomes a host
+        # tensor, whose copy a CUDA graph cannot capture
         decorated = pz.decorate_pillars(
-            voxels, num_points, coors[..., [2, 1]], self.geom,
+            voxels, num_points, coors[..., 1:].flip(-1), self.geom,
             cfg.max_points_voxel, with_distance=cfg.with_distance)
         b, m, p, d = decorated.shape
         with no_tf32(self._full_f32()):

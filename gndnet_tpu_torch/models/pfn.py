@@ -125,8 +125,9 @@ class PFNLayer(nn.Module):
             z = self.dense(x).float()
             if pillar_mask is None:
                 zm = z
-                rows = torch.tensor(float(z.shape[0] * z.shape[1]),
-                                    device=z.device)
+                # a fill, not a host-to-device copy: a CUDA graph takes it
+                rows = torch.full((), float(z.shape[0] * z.shape[1]),
+                                  device=z.device)
             else:
                 zm = torch.where(pillar_mask[:, None, None], z, 0.0)
                 rows = pillar_mask.float().sum() * z.shape[1]

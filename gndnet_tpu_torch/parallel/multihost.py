@@ -137,15 +137,11 @@ def local_batch_to_global(mesh, batch, device=None):
 
 def state_tensors(tree) -> list:
     """The tensors of `tree`, in a fixed order: a `train.TrainState` (the
-    model's state dict, then the SGD momentum buffers in parameter order),
+    model's state dict, then the momentum buffers in parameter order),
     an `nn.Module` (its state dict), or nested dicts / lists / tuples of
     tensors.  They share storage with the tree (in-place targets)."""
     if hasattr(tree, "model") and hasattr(tree, "tx"):
-        sgd = tree.tx.sgd
-        return (state_tensors(tree.model)
-                + [sgd.state[p]["momentum_buffer"] for p in tree.tx.params
-                   if p in sgd.state
-                   and sgd.state[p].get("momentum_buffer") is not None])
+        return state_tensors(tree.model) + list(tree.tx.momentum)
     if isinstance(tree, torch.nn.Module):
         return list(tree.state_dict().values())
     if isinstance(tree, dict):

@@ -370,7 +370,8 @@ def cases(s: Setup) -> dict:
         "engine_run_fine_grid": lambda: s.fine.run(s.fine_padded),
         "fwd_plus_segment_102k": fwd_plus_segment,
         "sort_B16": sort_b16,
-        "infer_many_K16": lambda: s.engine.infer_many(s.scans),
+        "infer_many_K16": lambda: s.engine.infer_many(s.scans, eager=True),
+        "infer_many_K16_graph": lambda: s.engine.infer_many(s.scans),
         "bcast_128x1.6M": lambda: affine_aux.segment_broadcast_t(
             *s.broadcast_inputs(), chunk=2048),
         "bcast_128x1.6M_onecell": lambda: affine_aux.segment_broadcast_t(
@@ -401,7 +402,7 @@ def run(only=(), reps: int = 20, setup: Setup | None = None) -> list:
                     k["kernel"]: k["ms_per_call"]
                     for k in device.get("top", [])[:6]},
                 "reps": reps, "card": smi}
-        if name == "infer_many_K16":
+        if name.startswith("infer_many_K16"):
             line["ms_per_scan"] = ms / len(setup.scans)
         lines.append(line)
         print(json.dumps(line), flush=True)

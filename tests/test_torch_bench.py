@@ -195,10 +195,15 @@ def test_bench_device_counts_both_engines(tmp_path, monkeypatch):
 
 def test_bench_batched_anchor_and_calls():
     cfg = small_cfg()
-    res = tbench.bench_batched(cfg, init_state_dict(cfg, seed=0), iters=8,
+    out = tbench.bench_batched(cfg, init_state_dict(cfg, seed=0), iters=8,
                                batch=2, ring_size=4, device="cpu")
-    assert res["calls"] == 4 * (1 + 3) and len(res["runs_hz"]) == 3
-    assert np.isfinite(res["anchor"])
+    assert list(out) == ["graph", "eager"]
+    for res in out.values():
+        assert res["calls"] == 4 * (1 + 3) and len(res["runs_hz"]) == 3
+        # a CPU run has no graph: every call runs eagerly
+        assert res["replays"] == 0 and res["eager_calls"] == res["calls"]
+        assert np.isfinite(res["anchor"])
+    assert out["graph"]["anchor"] == out["eager"]["anchor"]
 
 
 # --- train mode -----------------------------------------------------------------
@@ -207,11 +212,15 @@ def test_bench_train_restores_state_between_runs():
     """Every timed run starts from the saved state: its first loss is the
     warm run's first loss, to the bit."""
     cfg = small_cfg()
-    res = tbench.bench_train(cfg, iters=4, batch=2, device="cpu")
-    assert res["steps"] == 5 * 4 and len(res["runs_hz"]) == 4
-    first = res["first_losses"]
-    assert len(first) == 4 and len(set(first)) == 1 and np.isfinite(first[0])
-    assert np.isfinite(res["anchor"])
+    out = tbench.bench_train(cfg, iters=4, batch=2, device="cpu")
+    assert list(out) == ["graph", "eager"]
+    for res in out.values():
+        assert res["steps"] == 5 * 4 and len(res["runs_hz"]) == 4
+        assert res["replays"] == 0 and res["eager_steps"] == res["steps"]
+        first = res["first_losses"]
+        assert len(first) == 4 and len(set(first)) == 1
+        assert np.isfinite(first[0]) and np.isfinite(res["anchor"])
+    assert out["graph"]["first_losses"] == out["eager"]["first_losses"]
 
 
 # --- accuracy mode ----------------------------------------------------------------
@@ -326,10 +335,11 @@ def test_main_prints_one_line_per_mode(mode, small_yaml, capsys):
     assert line["value"] > 0 and line["unit"] == "Hz"
     assert line["vs_baseline"] == round(line["value"] / 55.0, 2)
     assert all(np.isfinite(r) and r > 0 for r in line["runs_hz"])
+    # a CPU run has no graph: nothing replays
+    assert line["engine"] == "graph" and line["replays"] == 0
+    assert line["eager"]["value"] > 0
     if mode not in ("batched", "train"):
-        assert line["engine"] == "graph"
-        assert line["eager"]["value"] > 0
-        assert line["scans"] > 0 and line["replays"] == 0
+        assert line["scans"] > 0
 
 
 def test_main_accuracy_raises_without_the_fixture(small_yaml):
@@ -384,14 +394,17 @@ def test_bench_turns_runs_each_case_as_a_process(small_yaml, tmp_path,
                                                  monkeypatch):
     from gndnet_tpu_torch import bench_turns
 
+    # --only keeps "single" and drops "device"
     monkeypatch.setattr(bench_turns, "CASES",
-                        (("single", ["--mode", "single"]),))
+                        (("single", ["--mode", "single"]),
+                         ("device", ["--mode", "device"])))
     out = tmp_path / "turns.jsonl"
     summary = bench_turns.main(
-        ["--rounds", "2", "--out", str(out), "--",
+        ["--rounds", "2", "--only", "single", "--out", str(out), "--",
          "--config", small_yaml, "--device", "cpu", "--iters", "2",
          "--watchdog", "0"])
     assert len(summary) == 1 and summary[0]["rounds"] == 2
+    assert summary[0]["case"] == "single"
     assert summary[0]["device"]["platform"] == "cpu"
     assert summary[0]["min"] > 0 and summary[0]["eager"]["min"] > 0
     assert len(out.read_text().splitlines()) == 3

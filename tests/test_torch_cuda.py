@@ -748,8 +748,8 @@ def test_fine_grid_affine_engine_kernel_path_matches_plain_path(dev):
 
 @pytest.mark.parametrize("grid", ["16x16", "fine_grid"])
 def test_infer_many_matches_infer(dev, grid):
-    """Scans of one bucket through `infer_many`, one fused call at B=K (the
-    batched sorts: no K1 or K10; K3 and K2 once), against per-scan
+    """Scans of one bucket through `infer_many(eager=True)`, one fused call
+    at B=K (the batched sorts: no K1 or K10; K3 and K2 once), against per-scan
     `infer` (K1, or K10 on fine_grid, once per scan), f32 with TF32 off:
     the batched canvas equal to the per-scan ones."""
     if grid == "fine_grid":
@@ -769,7 +769,7 @@ def test_infer_many_matches_infer(dev, grid):
                affine.affine_scan_gather)
     with no_tf32(True):
         before = [fn.launches for fn in counted]
-        many = eng.infer_many(scans)
+        many = eng.infer_many(scans, eager=True)
         assert [fn.launches - b for fn, b in zip(counted, before)] == \
             [0, 0, 1, 1]
         before = pair_sort.launches
@@ -866,3 +866,97 @@ def test_binning_on_the_card_equals_the_cpu(dev):
                         _cell_indices(scan, cfg.grid_range,
                                       cfg.voxel_size[0])):
             assert torch.equal(a.cpu(), b)
+
+
+SMALL_BF16 = dict(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
+                  grid_range=(0.0, -8.0, 16.0, 8.0), max_points_voxel=20,
+                  lidar_height=1.7, fused_impl="affine",
+                  compute_dtype="bfloat16", matmul_precision="default")
+
+
+def test_train_step_graph_replays_match_eager(dev):
+    """Three bf16 'affine' steps at B=2 through the train step's CUDA
+    graph and through `make_train_step(eager=True)`, from one state: the
+    same losses and the same state to the bit.  The first call warms up
+    and captures (K3, K5 and K6 counted 4 times each), every call
+    replays, and the warm-up leaves the state as it was."""
+    from gndnet_tpu_torch.utils.graphs import GRAPH_WARMUP
+
+    cfg = GndNetConfig(**SMALL_BF16)
+    sd = init_state_dict(cfg, seed=0)
+    rng = np.random.default_rng(7)
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in
+                     synthetic_labelled_batch(cfg, rng, 2, 3000))
+               for _ in range(3)]
+    g, e = (train.create_train_state(cfg, 10, state_dict=sd)
+            for _ in range(2))
+    g_step = train.make_train_step(cfg)
+    e_step = train.make_train_step(cfg, eager=True)
+    counted = (affine.cell_histogram, affine.affine_scan_argmax_packed,
+               affine.affine_bwd_dmmat)
+    before = [fn.launches for fn in counted]
+    for i, (pts, labels) in enumerate(batches):
+        _, lg = g_step(g, pts, labels)
+        if i == 0:
+            assert [fn.launches - b for fn, b in zip(counted, before)] == \
+                [GRAPH_WARMUP + 1] * 3
+        _, le = e_step(e, pts, labels)
+        assert torch.equal(lg, le), i
+        for x, y in zip(g.tensors(), e.tensors()):
+            assert torch.equal(x, y), i
+    assert g_step.replays == 3 and g_step.eager_steps == GRAPH_WARMUP + 1
+    assert g.step == int(g.step_t) == g.tx.count == 3
+
+
+def test_train_step_graph_follows_loaded_loss_scale(dev):
+    """A loss-scaled step's graph holds the scale's rule as captured:
+    loading a growth interval of 1 into the live scale captures anew, and
+    the new graph grows the scale where the eager step does.  The graphs
+    of a state go with it."""
+    import gc
+
+    from gndnet_tpu_torch.utils.graphs import GRAPH_WARMUP
+
+    cfg = GndNetConfig(**SMALL_BF16)
+    sd = init_state_dict(cfg, seed=0)
+    rng = np.random.default_rng(9)
+    pts, labels = (torch.from_numpy(x).to(dev) for x in
+                   synthetic_labelled_batch(cfg, rng, 2, 3000))
+    g, e = (train.create_train_state(cfg, 10, state_dict=sd,
+                                     loss_scaling=True) for _ in range(2))
+    g_step = train.make_train_step(cfg)
+    e_step = train.make_train_step(cfg, eager=True)
+    for k in range(3):
+        if k == 1:
+            for s in (g, e):
+                s.dynamic_scale.load_state_dict(
+                    {**s.dynamic_scale.state_dict(), "growth_interval": 1})
+        _, lg = g_step(g, pts, labels)
+        _, le = e_step(e, pts, labels)
+        assert torch.equal(lg, le), k
+        for x, y in zip(g.tensors(), e.tensors()):
+            assert torch.equal(x, y), k
+    assert g.dynamic_scale.scale == e.dynamic_scale.scale == 2 * 65536.0
+    assert g_step.replays == 3
+    assert g_step.eager_steps == 2 * (GRAPH_WARMUP + 1)
+    assert len(g_step.program.caches) == 1
+    del g
+    gc.collect()
+    assert len(g_step.program.caches) == 0
+
+
+def test_infer_many_graph_matches_eager(dev):
+    """`infer_many` of K=4 scans replays the CUDA graph of `run_many` for
+    its (K, bucket) shape: the eager call's bits, one replay a burst, a
+    new capture for another K."""
+    cfg = GndNetConfig(**SMALL_BF16)
+    eng = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0),
+                                bucket=1024)
+    rng = np.random.default_rng(8)
+    scans = [synthetic_scan(cfg, rng, n) for n in (3100, 3500, 4000, 3300)]
+    for burst in (scans, scans[::-1], scans[:2]):
+        got = eng.infer_many(burst)
+        want = eng.infer_many(burst, eager=True)
+        for (a, b), (c, d) in zip(got, want):
+            assert np.array_equal(a, c) and np.array_equal(b, d)
+    assert eng._many.replays == 3 and len(eng._many.graphs) == 2

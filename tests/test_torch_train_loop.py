@@ -83,8 +83,8 @@ def test_train_and_evaluate_checkpoint_and_resume(tmp_path):
     assert fresh.step == live.step == 4
     for p, q in zip(fresh.tx.params, live.tx.params):
         assert torch.equal(p, q)
-        assert torch.equal(fresh.tx.sgd.state[p]["momentum_buffer"],
-                           live.tx.sgd.state[q]["momentum_buffer"])
+    for m, n in zip(fresh.tx.momentum, live.tx.momentum):
+        assert torch.equal(m, n)
     hist2 = train.train_and_evaluate(cfg, epochs=3, resume=True, **kw)
     assert len(hist2["train_loss"]) == 1 and hist2["state"].step == 6
 

@@ -76,9 +76,8 @@ def _initial(cfg) -> dict:
 
 
 def _momentum(tstate) -> dict:
-    named = dict(tstate.model.named_parameters())
-    return {n: tstate.tx.sgd.state[p]["momentum_buffer"]
-            for n, p in named.items() if p in tstate.tx.sgd.state}
+    names = [n for n, _ in tstate.model.named_parameters()]
+    return dict(zip(names, tstate.tx.momentum))
 
 
 def _jax_state(jcfg, tstate):
