@@ -13,8 +13,9 @@ its mode (`metric`, `value`, `unit`, `vs_baseline` against the reference's
   limit in watts, as `nvidia-smi --query-gpu=name,power.limit` gives them;
 * `runs_hz`: the rate of every timed run, so the spread shows;
 * for the serving modes, the engine that gave `value` and its counts:
-  `scans` it served, `replays` of its CUDA graph and `eager_scans` it ran
-  eagerly (the graph's warm-up and capture included); and under `eager`
+  `scans` it served, `replays` and `captures` of its CUDA graphs and
+  `eager_scans` it ran eagerly (the graph's warm-up and capture
+  included: `GroundInferenceEngine.counts`); and under `eager`
   the same measurement through an engine without a graph;
 * for `train`, `batched` and `e2e --burst`, `value` is the program
   replayed as one CUDA graph per shape (the train step, the B=`--batch`
@@ -148,51 +149,20 @@ def transfer_budget(engine: GroundInferenceEngine, cfg: GndNetConfig,
                                             1)}
 
 
-class CountingEngine(GroundInferenceEngine):
-    """The serving engine, counting the scans it serves (`_dispatch`,
-    `infer_many`) and those it runs eagerly (`run_many`, which `run`,
-    `warmup` and the graphs' warm-ups and captures reach; never a graph
-    replay).  One thread
-    serves at a time in every mode, so the counts need no lock."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.served = 0
-        self.eager_scans = 0
-
-    def _dispatch(self, padded: torch.Tensor):
-        self.served += 1
-        return super()._dispatch(padded)
-
-    def infer_many(self, scans, eager: bool = False) -> list:
-        self.served += len(scans)
-        return super().infer_many(scans, eager=eager)
-
-    def run_many(self, padded: torch.Tensor, reference: bool = False):
-        self.eager_scans += padded.shape[0]
-        return super().run_many(padded, reference=reference)
-
-    def counts(self) -> dict:
-        graph = self._graph[1] if self._graph is not None else None
-        return {"scans": self.served,
-                "replays": ((graph.replays if graph is not None else 0)
-                            + self._many.replays),
-                "eager_scans": self.eager_scans}
-
-
 def engines(cfg: GndNetConfig, state_dict, device, **kwargs):
     """("graph", engine served from an `aot_save` / `aot_load` warm start
     in CACHE_DIR), then ("eager", engine without a graph), the second made
     when the first has been measured.  A CPU engine has no graph: both
     serve eagerly there."""
-    graph = CountingEngine(cfg, state_dict, device=device, **kwargs)
+    graph = GroundInferenceEngine(cfg, state_dict, device=device, **kwargs)
     os.makedirs(CACHE_DIR, exist_ok=True)
     path = os.path.join(CACHE_DIR, f"aot_{graph.transfer_dtype}"
                         f"_{graph.transfer_features}.json")
     graph.aot_save(path)
     graph.aot_load(path)
     yield "graph", graph
-    yield "eager", CountingEngine(cfg, state_dict, device=device, **kwargs)
+    yield "eager", GroundInferenceEngine(cfg, state_dict, device=device,
+                                         **kwargs)
 
 
 def sync(device) -> None:
@@ -253,7 +223,7 @@ def bench_device(cfg: GndNetConfig, state_dict, iters: int,
     rate = ring_size / the fastest pass.  Host-to-device copies are
     excluded (`e2e` measures the full loop).  Returns {"graph": ...,
     "eager": ...}, each {"hz", "runs_hz", "anchor", "scans", "replays",
-    "eager_scans"}."""
+    "captures", "eager_scans"}."""
     ring_size = ring_size or RING_SIZE
     reps = max(3, iters // ring_size)
     device = resolve_device(device)
@@ -289,7 +259,8 @@ def bench_e2e(cfg: GndNetConfig, state_dict, iters: int,
     out, budget = {}, None
     if burst > 1:
         for name in ("graph", "eager"):
-            engine = CountingEngine(cfg, state_dict, device=device, **kwargs)
+            engine = GroundInferenceEngine(cfg, state_dict, device=device,
+                                           **kwargs)
             budget = transfer_budget(engine, cfg, scan.shape[0])
             eager = name == "eager"
             engine.infer_many([scans[j % len(scans)] for j in range(burst)],

@@ -35,6 +35,7 @@ from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.ops.postproc import segment_cloud
 from gndnet_tpu_torch.utils.graphs import GraphCache, StepGraph
+from gndnet_tpu_torch.utils.profiling import span
 
 _PAD_SENTINEL = 1e9  # pads bin far out of range -> seg label -1, no pillar
 PIPELINE_DEPTH = 3   # infer_pipelined's default depth and the ring's slots
@@ -68,12 +69,14 @@ class _HostRing:
             self.next += 1
             host, done = slot
             if done is not None:
-                done.synchronize()
+                with span("gndnet.engine.slot_wait"):
+                    done.synchronize()
             if host is None or host.shape != src.shape \
                     or host.dtype != src.dtype:
                 host = torch.empty(src.shape, dtype=src.dtype,
                                    pin_memory=True)
-            host.copy_(src)
+            with span("gndnet.engine.stage_copy"):
+                host.copy_(src)
             with torch.cuda.stream(self.stream):
                 dev = host.to(self.device, non_blocking=True)
                 done = torch.cuda.Event()
@@ -103,6 +106,12 @@ class GroundInferenceEngine:
       transfer_features: ship only the leading k >= 3 point columns and
         zero-fill the rest on the device.
       device: the card unless 'cpu' is passed; raises if CUDA is missing.
+
+    Each stage of a scan is a host span (`utils.profiling.span`) while a
+    profiler collects: `gndnet.engine.submit` (`prepare`, `stack`,
+    `upload` with its `slot_wait` and `stage_copy`, `dispatch` with the
+    graph's `gndnet.graph.replay`, `capture` or `eager`), then
+    `gndnet.engine.fetch`.  `counts()` gives what the engine served.
     """
 
     QUANT_SCALE = 1.0 / 256.0   # 4 mm resolution, +-128 m range in int16
@@ -136,6 +145,25 @@ class GroundInferenceEngine:
                       if self.device.type == "cuda" else None)
         self._graph = None      # (padded shape, StepGraph or None)
         self._many = GraphCache(self.run_many)   # infer_many's graphs
+        self._counted = {"scans": 0, "eager_scans": 0}
+        self._count_lock = threading.Lock()
+
+    def _count(self, key: str, k: int) -> None:
+        with self._count_lock:
+            self._counted[key] += k
+
+    def counts(self) -> dict:
+        """`scans` served (`_dispatch`, `infer_many`), `replays` and
+        `captures` of the engine's CUDA graphs, and `eager_scans`: the
+        scans `run_many` ran outside a replay (`run`, `warmup`, eager
+        bursts, and each graph's warm-up and capture, so as many as a
+        kernel wrapper counts launches)."""
+        graph = self._graph[1] if self._graph is not None else None
+        return {"scans": self._counted["scans"],
+                "replays": ((graph.replays if graph is not None else 0)
+                            + self._many.replays),
+                "captures": (graph is not None) + len(self._many.graphs),
+                "eager_scans": self._counted["eager_scans"]}
 
     def _pad(self, points: np.ndarray) -> np.ndarray:
         n = points.shape[0]
@@ -168,9 +196,10 @@ class GroundInferenceEngine:
     def _upload(self, padded: np.ndarray) -> torch.Tensor:
         """A prepared scan on the engine's device, ready on the current
         stream."""
-        if self._ring is None:
-            return torch.from_numpy(padded)
-        return self._ring.upload(padded)
+        with span("gndnet.engine.upload"):
+            if self._ring is None:
+                return torch.from_numpy(padded)
+            return self._ring.upload(padded)
 
     def device_points(self, padded: torch.Tensor) -> torch.Tensor:
         """Prepared (padded) scans, (Np, k) or stacked (K, Np, k) -> the
@@ -199,6 +228,7 @@ class GroundInferenceEngine:
         its own map in one batched gather.  Returns (elevation (K, ny, nx)
         float32, labels (K, Np) int8) on the device.  `reference=True`
         takes the plain version of every kernel stage."""
+        self._count("eager_scans", padded.shape[0])
         pts = self.device_points(padded)
         pred = self.model.fused(pts, reference=reference)
         labels = segment_cloud(pts, self.cfg.grid_range,
@@ -209,24 +239,30 @@ class GroundInferenceEngine:
     def _dispatch(self, padded: torch.Tensor):
         """`run`, or the replay of the graph `aot_load` captured when the
         padded shape is the one it was captured for."""
-        if self._graph is not None:
-            shape, graph = self._graph
-            if graph is not None and tuple(padded.shape) == shape:
-                return graph(padded)
-        return self.run(padded)
+        self._count("scans", 1)
+        with span("gndnet.engine.dispatch"):
+            if self._graph is not None:
+                shape, graph = self._graph
+                if graph is not None and tuple(padded.shape) == shape:
+                    return graph(padded)
+            with span("gndnet.graph.eager"):
+                return self.run(padded)
 
     def infer_async(self, points: np.ndarray) -> tuple:
         """Non-blocking submit: returns (n, pred_dev, labels_dev), device
         tensors on the current stream, without waiting for the card.
         Interleave several calls before materialising to overlap the
         host-to-device copies with compute."""
-        padded, n = self._prepare(points)
-        pred, labels = self._dispatch(self._upload(padded))
+        with span("gndnet.engine.submit"):
+            with span("gndnet.engine.prepare"):
+                padded, n = self._prepare(points)
+            pred, labels = self._dispatch(self._upload(padded))
         return n, pred, labels
 
     @staticmethod
     def _fetch(n: int, pred: torch.Tensor, labels: torch.Tensor) -> tuple:
-        return pred.cpu().numpy(), labels[:n].cpu().numpy()
+        with span("gndnet.engine.fetch"):
+            return pred.cpu().numpy(), labels[:n].cpu().numpy()
 
     def infer(self, points: np.ndarray) -> tuple:
         """points: (N, >=3) float32 (extra columns beyond
@@ -259,16 +295,27 @@ class GroundInferenceEngine:
         captured at the first such burst (`eager=True` runs `run_many`
         eagerly instead).  Returns [(elevation (ny, nx) np.float32, labels
         (N_i,) np.int8), ...] in submission order."""
-        prepared = [self._prepare(s) for s in scans]
-        shapes = {p.shape for p, _ in prepared}
-        if len(shapes) != 1:
-            raise ValueError(f"scans fall into mixed buckets {shapes}; "
-                             "pad or split the burst")
-        stack = self._upload(np.stack([p for p, _ in prepared]))
-        preds, labels = (self.run_many if eager else self._many)(stack)
-        preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
-        return [(preds[i], labels[i][:n])
-                for i, (_, n) in enumerate(prepared)]
+        with span("gndnet.engine.submit"):
+            with span("gndnet.engine.prepare"):
+                prepared = [self._prepare(s) for s in scans]
+            shapes = {p.shape for p, _ in prepared}
+            if len(shapes) != 1:
+                raise ValueError(f"scans fall into mixed buckets {shapes}; "
+                                 "pad or split the burst")
+            with span("gndnet.engine.stack"):
+                stack = np.stack([p for p, _ in prepared])
+            stack = self._upload(stack)
+            self._count("scans", len(prepared))
+            with span("gndnet.engine.dispatch"):
+                if eager:
+                    with span("gndnet.graph.eager"):
+                        preds, labels = self.run_many(stack)
+                else:
+                    preds, labels = self._many(stack)
+        with span("gndnet.engine.fetch"):
+            preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
+            return [(preds[i], labels[i][:n])
+                    for i, (_, n) in enumerate(prepared)]
 
     def _example_input(self, n: int | None = None) -> np.ndarray:
         """A padded input of the shape the engine serves."""

@@ -51,6 +51,7 @@ from gndnet_tpu_torch.models.segnet import no_tf32
 from gndnet_tpu_torch.ops import pillarize as pz
 from gndnet_tpu_torch.utils.graphs import GraphCache
 from gndnet_tpu_torch.utils.logging import AverageMeter, setup_logger
+from gndnet_tpu_torch.utils.profiling import span
 from gndnet_tpu_torch.utils.schedules import step_lr
 from gndnet_tpu_torch.weights import init_state_dict
 
@@ -366,8 +367,9 @@ def loss_fn(cfg: GndNetConfig) -> Callable:
 
 def _as_batch(state: TrainState, points, labels):
     dev = state.model.device
-    return (torch.as_tensor(points, dtype=torch.float32, device=dev),
-            torch.as_tensor(labels, dtype=torch.float32, device=dev))
+    with span("gndnet.train.batch"):
+        return (torch.as_tensor(points, dtype=torch.float32, device=dev),
+                torch.as_tensor(labels, dtype=torch.float32, device=dev))
 
 
 def _predict(model: GroundEstimatorNet, cfg: GndNetConfig, points,
@@ -399,7 +401,8 @@ class _Program:
     def __call__(self, state: TrainState, *tensors):
         if self.eager or state.model.device.type != "cuda":
             self.eager_steps += 1
-            return self.body(state, *tensors)
+            with span("gndnet.graph.eager"):
+                return self.body(state, *tensors)
         by_scale = self.caches.setdefault(state, {})
         ds = state.dynamic_scale
         key = None if ds is None else (
@@ -423,7 +426,9 @@ class _Program:
 
 class TrainStep:
     """The train step of `make_train_step`: (state, points, labels) ->
-    (state, loss)."""
+    (state, loss).  While a profiler collects, a step is the host span
+    `gndnet.train.step`, holding `gndnet.train.batch` (the host batch's
+    copy) and the graph's `gndnet.graph.replay`, `capture` or `eager`."""
 
     def __init__(self, cfg: GndNetConfig, augment: bool, reference: bool,
                  use_pillar_path: bool, eager: bool):
@@ -468,14 +473,15 @@ class TrainStep:
         return self.program.eager_steps
 
     def __call__(self, state: TrainState, points, labels):
-        points, labels = _as_batch(state, points, labels)
-        draws = ()
-        if self.augment:
-            draws = aug.augment_draws(aug.augment_generator(
-                AUGMENT_SEED, state.step, points.device), points.shape[0],
-                self.cfg)
-        loss = self.program(state, points, labels, *draws)
-        state._step += 1
+        with span("gndnet.train.step"):
+            points, labels = _as_batch(state, points, labels)
+            draws = ()
+            if self.augment:
+                draws = aug.augment_draws(aug.augment_generator(
+                    AUGMENT_SEED, state.step, points.device),
+                    points.shape[0], self.cfg)
+            loss = self.program(state, points, labels, *draws)
+            state._step += 1
         return state, loss
 
 

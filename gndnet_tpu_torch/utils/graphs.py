@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from gndnet_tpu_torch.utils.profiling import span
+
 GRAPH_WARMUP = 3    # eager calls on a side stream before a capture
 
 
@@ -52,20 +54,22 @@ class StepGraph:
     def __init__(self, fn: Callable, examples, pool=None,
                  reset: Callable | None = None):
         dev = examples[0].device
-        self.inputs = tuple(x.clone() for x in examples)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUP):
-                fn(*self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if reset is not None:
-            reset()
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA work does not void the capture
-        with torch.cuda.graph(self.graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            out = fn(*self.inputs)
+        with span("gndnet.graph.capture"):
+            self.inputs = tuple(x.clone() for x in examples)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    fn(*self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if reset is not None:
+                reset()
+            self.graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's CUDA work does not void the
+            # capture
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = fn(*self.inputs)
         self.single = isinstance(out, torch.Tensor)
         self.outputs = (out,) if self.single else tuple(out)
         self.done = torch.cuda.Event()
@@ -74,7 +78,7 @@ class StepGraph:
         self.replays = 0
 
     def __call__(self, *args):
-        with self.lock:
+        with self.lock, span("gndnet.graph.replay"):
             stream = torch.cuda.current_stream(self.inputs[0].device)
             stream.wait_event(self.done)
             for dst, src in zip(self.inputs, args):
@@ -121,7 +125,8 @@ class GraphCache:
     def __call__(self, *tensors):
         if tensors[0].device.type != "cuda":
             self.eager_calls += 1
-            return self.fn(*tensors)
+            with span("gndnet.graph.eager"):
+                return self.fn(*tensors)
         with self.lock:
             key = _key(tensors)
             graph = self.graphs.get(key)

@@ -5,13 +5,15 @@ wall-clock instrumentation: AverageMeter timers and time.time() deltas,
 reference: training.py:112-123, ros_node.py:109-123,
 utils/speed_test.py:6-12):
 
+* `span` - a named host span of the program (`gndnet.<layer>.<stage>`)
+  in whatever `torch.profiler` session is collecting, on the clock of
+  its device trace; nothing without one;
 * `trace` - a context manager around `torch.profiler` (CPU and, where
   there is a card, CUDA activities) writing a trace that TensorBoard and
   Perfetto load;
 * `measure_hz` - throughput with forced completion: each rep ends on a
   host-fetched scalar that depends on every output, after
-  `torch.cuda.synchronize()` on the card, and the fastest rep is kept;
-* `StageTimer` - named accumulating host-side stage timers.
+  `torch.cuda.synchronize()` on the card, and the fastest rep is kept.
 """
 
 from __future__ import annotations
@@ -19,9 +21,23 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
 
 import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span('gndnet.engine.fetch'): ...` records the block as
+    `name` while a profiler collects (`trace`, or any `torch.profiler`
+    session), in the same trace as its CUDA activity.  Otherwise it
+    returns one shared null context: a `record_function` costs about as
+    much with no profiler as with one, so the check comes first.  Spans
+    mark stage boundaries, never a loop over points."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return record_function(name)
 
 
 @contextlib.contextmanager
@@ -73,30 +89,3 @@ def measure_hz(fn, make_inputs, *, units_per_call: int = 1, reps: int = 5):
         _sync()
         best = min(best, time.perf_counter() - t0)
     return units_per_call / best
-
-
-class StageTimer:
-    """Named accumulating host timers: `with t('voxelize'): ...`;
-    `t.report()`."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            n = self.counts[name]
-            lines.append(
-                f"{name}: total {self.totals[name]*1e3:.1f} ms over {n} "
-                f"({self.totals[name]/n*1e3:.2f} ms avg)")
-        return "\n".join(lines)

@@ -133,7 +133,7 @@ def test_transfer_budget_matches_jax(transfer):
 # --- device mode --------------------------------------------------------------
 
 def _engine(cfg, seed=0, **kw):
-    return tbench.CountingEngine(cfg, init_state_dict(cfg, seed=seed),
+    return GroundInferenceEngine(cfg, init_state_dict(cfg, seed=seed),
                                  threshold=0.08, shift_cloud=True,
                                  device="cpu", **kw)
 
@@ -164,7 +164,9 @@ def test_device_anchor_sums_every_slot():
     times, anchors = tbench.ring_rate(engine._dispatch, ring.clone(), 2,
                                       "cpu")
     assert len(times) == 2 and len(anchors) == 3
-    assert engine.served == engine.eager_scans == 12
+    counts = engine.counts()
+    assert counts["scans"] == counts["eager_scans"] == 12
+    assert counts["replays"] == counts["captures"] == 0
     for k, anchor in enumerate(anchors):
         if k:
             tbench.bump(ring)
