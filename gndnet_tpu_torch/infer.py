@@ -12,12 +12,13 @@ engine runs on the card unless the caller passes device='cpu'.
 
 On the card a scan goes host -> pinned ring slot -> device on a copy stream,
 and the compute stream waits on the copy's event, so copies overlap the
-previous scans' compute.  Where the JAX engine dispatches one compiled XLA
-executable a scan, the port launches each operation of `run` from Python;
-`aot_load` captures `run` as one CUDA graph for the artifact's padded shape,
-so a scan of that shape is one graph replay.  `infer_many` replays one CUDA
-graph of `run_many` per (K, bucket) shape on a CUDA engine (JAX's
-`_run_many` jitted once per K).
+previous scans' compute; a burst's scans are padded straight into one
+pinned slot, which goes up whole.  Where the JAX engine dispatches one
+compiled XLA executable a scan, the port launches each operation of `run`
+from Python; `aot_load` captures `run` as one CUDA graph for the artifact's
+padded shape, so a scan of that shape is one graph replay.  `infer_many`
+replays one CUDA graph of `run_many` per (K, bucket) shape on a CUDA engine
+(JAX's `_run_many` jitted once per K).
 """
 
 from __future__ import annotations
@@ -44,16 +45,20 @@ PIPELINE_DEPTH = 3   # infer_pipelined's default depth and the ring's slots
 class _HostRing:
     """Pinned host buffers that feed the card from a copy stream.
 
-    A slot is written again only after its last copy's event has
-    completed; the device tensor a copy produces is handed to the caller's
-    stream behind that event (and `record_stream`), so the caching
-    allocator does not reuse it while the compute stream reads it."""
+    `acquire` takes the next slot and holds it, under the ring's lock,
+    until `send` copies it up (or `release` gives it back unsent), so a
+    slot is written again only after its last copy's event has completed.
+    The device tensor a copy produces is handed to the caller's stream
+    behind that event (and `record_stream`), so the caching allocator does
+    not reuse it while the compute stream reads it."""
 
     def __init__(self, device: torch.device, slots: int):
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.slots: list = []       # [pinned host tensor, copy event]
         self.next = 0
+        self.held = None            # the slot between acquire and send
+        self.allocs = 0             # pinned buffers allocated
         self.lock = threading.Lock()
         self.reserve(slots)
 
@@ -62,30 +67,61 @@ class _HostRing:
             while len(self.slots) < slots:
                 self.slots.append([None, None])
 
-    def upload(self, padded: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(padded)
-        with self.lock:
+    def acquire(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """The next slot's pinned host tensor, of `shape` and `dtype`, to
+        write, once its last copy has completed.  The caller holds the
+        ring until it calls `send` or `release`."""
+        self.lock.acquire()
+        try:
             slot = self.slots[self.next % len(self.slots)]
             self.next += 1
             host, done = slot
             if done is not None:
                 with span("gndnet.engine.slot_wait"):
                     done.synchronize()
-            if host is None or host.shape != src.shape \
-                    or host.dtype != src.dtype:
-                host = torch.empty(src.shape, dtype=src.dtype,
-                                   pin_memory=True)
-            with span("gndnet.engine.stage_copy"):
-                host.copy_(src)
+            if host is None or host.shape != tuple(shape) \
+                    or host.dtype != dtype:
+                slot[0] = host = torch.empty(shape, dtype=dtype,
+                                             pin_memory=True)
+                self.allocs += 1
+        except BaseException:
+            self.lock.release()
+            raise
+        self.held = slot
+        return host
+
+    def release(self) -> None:
+        """Give the held slot back without a copy."""
+        self.held = None
+        self.lock.release()
+
+    def send(self) -> torch.Tensor:
+        """Copy the held slot to the device on the copy stream, and give
+        the ring back: the device tensor, ready on the current stream."""
+        slot, self.held = self.held, None
+        try:
             with torch.cuda.stream(self.stream):
-                dev = host.to(self.device, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.stream)
-            slot[:] = host, done
+                dev = slot[0].to(self.device, non_blocking=True)
+                slot[1] = torch.cuda.Event()
+                slot[1].record(self.stream)
+            done = slot[1]
+        finally:
+            self.lock.release()
         compute = torch.cuda.current_stream(self.device)
         compute.wait_event(done)
         dev.record_stream(compute)
         return dev
+
+    def upload(self, padded: np.ndarray) -> torch.Tensor:
+        src = torch.from_numpy(padded)
+        host = self.acquire(src.shape, src.dtype)
+        try:
+            with span("gndnet.engine.stage_copy"):
+                host.copy_(src)
+        except BaseException:
+            self.release()
+            raise
+        return self.send()
 
 
 class GroundInferenceEngine:
@@ -108,10 +144,12 @@ class GroundInferenceEngine:
       device: the card unless 'cpu' is passed; raises if CUDA is missing.
 
     Each stage of a scan is a host span (`utils.profiling.span`) while a
-    profiler collects: `gndnet.engine.submit` (`prepare`, `stack`,
-    `upload` with its `slot_wait` and `stage_copy`, `dispatch` with the
-    graph's `gndnet.graph.replay`, `capture` or `eager`), then
-    `gndnet.engine.fetch`.  `counts()` gives what the engine served.
+    profiler collects: `gndnet.engine.submit` (`prepare`, `upload` with its
+    `slot_wait` and `stage_copy`, `dispatch` with the graph's
+    `gndnet.graph.replay`, `capture` or `eager`), then `gndnet.engine.fetch`.
+    A burst writes its scans straight into a pinned slot: `prepare`,
+    `slot_wait`, `stack` (the fill), `upload` (the copy up), `dispatch`; no
+    `stage_copy`.  `counts()` gives what the engine served.
     """
 
     QUANT_SCALE = 1.0 / 256.0   # 4 mm resolution, +-128 m range in int16
@@ -140,12 +178,17 @@ class GroundInferenceEngine:
         self._shift = torch.tensor(
             [0.0, 0.0, cfg.lidar_height if self.shift else 0.0]
             + [0.0] * (cfg.input_features - 3), device=self.device)
-        # the CPU engine copies nothing: no pinned memory, no stream
-        self._ring = (_HostRing(self.device, PIPELINE_DEPTH)
-                      if self.device.type == "cuda" else None)
+        # the CPU engine copies nothing: no pinned memory, no stream.  A
+        # burst waits for its answers, so one slot of its own serves every
+        # burst, and the single-scan ring keeps its slots' shapes.
+        cuda = self.device.type == "cuda"
+        self._ring = _HostRing(self.device, PIPELINE_DEPTH) if cuda else None
+        self._burst_ring = _HostRing(self.device, 1) if cuda else None
+        self._pad_value = self._quantise(
+            np.full(1, _PAD_SENTINEL, np.float32))[0]
         self._graph = None      # (padded shape, StepGraph or None)
         self._many = GraphCache(self.run_many)   # infer_many's graphs
-        self._counted = {"scans": 0, "eager_scans": 0}
+        self._counted = {"scans": 0, "eager_scans": 0, "staged": 0}
         self._count_lock = threading.Lock()
 
     def _count(self, key: str, k: int) -> None:
@@ -157,25 +200,39 @@ class GroundInferenceEngine:
         `captures` of the engine's CUDA graphs, and `eager_scans`: the
         scans `run_many` ran outside a replay (`run`, `warmup`, eager
         bursts, and each graph's warm-up and capture, so as many as a
-        kernel wrapper counts launches)."""
+        kernel wrapper counts launches); `staged`, the scans `infer_many`
+        wrote straight into the buffer the device reads (a pinned slot on
+        a CUDA engine), and `slot_allocs`, the pinned buffers the rings
+        allocated (one a burst shape in a stream of bursts)."""
         graph = self._graph[1] if self._graph is not None else None
+        rings = [r for r in (self._ring, self._burst_ring) if r is not None]
         return {"scans": self._counted["scans"],
                 "replays": ((graph.replays if graph is not None else 0)
                             + self._many.replays),
                 "captures": (graph is not None) + len(self._many.graphs),
-                "eager_scans": self._counted["eager_scans"]}
+                "eager_scans": self._counted["eager_scans"],
+                "staged": self._counted["staged"],
+                "slot_allocs": sum(r.allocs for r in rings)}
+
+    def _padded_len(self, n: int) -> int:
+        """The points of a scan of n points after bucket padding."""
+        return max(self.bucket, -(-n // self.bucket) * self.bucket)
+
+    def _quantise(self, points: np.ndarray) -> np.ndarray:
+        """float32 points in the transfer type."""
+        if self.transfer_dtype == "int16":
+            return np.clip(np.rint(points / self.QUANT_SCALE),
+                           -32768, 32767).astype(np.int16)
+        return points
 
     def _pad(self, points: np.ndarray) -> np.ndarray:
         n = points.shape[0]
-        target = max(self.bucket, -(-n // self.bucket) * self.bucket)
+        target = self._padded_len(n)
         if n != target:
             pad = np.full((target - n, points.shape[1]), _PAD_SENTINEL,
                           points.dtype)
             points = np.concatenate([points, pad])
-        if self.transfer_dtype == "int16":
-            points = np.clip(np.rint(points / self.QUANT_SCALE),
-                             -32768, 32767).astype(np.int16)
-        return points
+        return self._quantise(points)
 
     def _prepare(self, points: np.ndarray) -> tuple:
         points = np.asarray(points, np.float32)
@@ -186,10 +243,21 @@ class GroundInferenceEngine:
                                   np.float32)], axis=1)
         return self._pad(points[:, :k]), points.shape[0]
 
+    def _fill(self, points: np.ndarray, out: np.ndarray) -> None:
+        """Write a float32 scan into `out`, one (Np, k) row of a burst's
+        stack, as `_prepare` pads it: its leading k columns (zeros where
+        it has fewer), `_PAD_SENTINEL` rows from its length on, in the
+        transfer type; bit-equal to `_prepare(points)[0]`."""
+        n = points.shape[0]
+        c = min(points.shape[1], self.transfer_features)
+        out[:n, :c] = self._quantise(points[:, :c])
+        out[:n, c:] = 0
+        out[n:] = self._pad_value
+
     def transfer_bytes(self, n_points: int) -> int:
         """Host->device bytes one scan of n_points costs through this
         engine's transfer configuration (after bucket padding)."""
-        padded = max(self.bucket, -(-n_points // self.bucket) * self.bucket)
+        padded = self._padded_len(n_points)
         item = 2 if self.transfer_dtype == "int16" else 4
         return padded * self.transfer_features * item
 
@@ -289,23 +357,39 @@ class GroundInferenceEngine:
 
     def infer_many(self, scans, eager: bool = False) -> list:
         """Batched inference of a burst of scans in one device call: all
-        scans must fall into one padded bucket.  The stack goes up through
-        a pinned ring slot, and on a CUDA engine a burst of K scans
-        replays the CUDA graph of `run_many` for its (K, bucket) shape,
-        captured at the first such burst (`eager=True` runs `run_many`
-        eagerly instead).  Returns [(elevation (ny, nx) np.float32, labels
-        (N_i,) np.int8), ...] in submission order."""
+        scans must fall into one padded bucket.  Each scan is padded
+        straight into the burst's pinned slot, the slot goes up whole, and
+        on a CUDA engine a burst of K scans replays the CUDA graph of
+        `run_many` for its (K, bucket) shape, captured at the first such
+        burst (`eager=True` runs `run_many` eagerly instead).  Returns
+        [(elevation (ny, nx) np.float32, labels (N_i,) np.int8), ...] in
+        submission order."""
         with span("gndnet.engine.submit"):
             with span("gndnet.engine.prepare"):
-                prepared = [self._prepare(s) for s in scans]
-            shapes = {p.shape for p, _ in prepared}
-            if len(shapes) != 1:
-                raise ValueError(f"scans fall into mixed buckets {shapes}; "
-                                 "pad or split the burst")
-            with span("gndnet.engine.stack"):
-                stack = np.stack([p for p, _ in prepared])
-            stack = self._upload(stack)
-            self._count("scans", len(prepared))
+                scans = [np.asarray(s, np.float32) for s in scans]
+                shapes = {(self._padded_len(s.shape[0]),
+                           self.transfer_features) for s in scans}
+                if len(shapes) != 1:
+                    raise ValueError(f"scans fall into mixed buckets "
+                                     f"{shapes}; pad or split the burst")
+            shape = (len(scans), *shapes.pop())
+            ring = self._burst_ring
+            stack = (np.empty(shape, self.transfer_dtype) if ring is None
+                     else ring.acquire(shape, getattr(
+                         torch, self.transfer_dtype)).numpy())
+            try:
+                with span("gndnet.engine.stack"):
+                    for points, row in zip(scans, stack):
+                        self._fill(points, row)
+            except BaseException:
+                if ring is not None:
+                    ring.release()
+                raise
+            self._count("staged", len(scans))
+            with span("gndnet.engine.upload"):
+                stack = torch.from_numpy(stack) if ring is None \
+                    else ring.send()
+            self._count("scans", len(scans))
             with span("gndnet.engine.dispatch"):
                 if eager:
                     with span("gndnet.graph.eager"):
@@ -314,8 +398,8 @@ class GroundInferenceEngine:
                     preds, labels = self._many(stack)
         with span("gndnet.engine.fetch"):
             preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
-            return [(preds[i], labels[i][:n])
-                    for i, (_, n) in enumerate(prepared)]
+            return [(preds[i], labels[i][:s.shape[0]])
+                    for i, s in enumerate(scans)]
 
     def _example_input(self, n: int | None = None) -> np.ndarray:
         """A padded input of the shape the engine serves."""

@@ -960,3 +960,44 @@ def test_infer_many_graph_matches_eager(dev):
         for (a, b), (c, d) in zip(got, want):
             assert np.array_equal(a, c) and np.array_equal(b, d)
     assert eng._many.replays == 3 and len(eng._many.graphs) == 2
+
+
+def test_host_ring_holds_a_slot_from_acquire_to_send(dev):
+    """Threads that acquire, fill and send slots of one ring (some giving
+    theirs back unsent) each get their own values on the device: no slot
+    is written while another caller holds it or while its copy is in
+    flight."""
+    import sys
+    import threading
+
+    from gndnet_tpu_torch.infer import _HostRing
+
+    ring = _HostRing(dev, 2)
+    wrong, done = [], []
+
+    def work(tid):
+        for it in range(40):
+            host = ring.acquire((4096, 4), torch.float32)
+            if it % 7 == 3:
+                ring.release()
+                continue
+            value = float(tid * 1000 + it)
+            host[:] = value
+            got = ring.send()
+            if not bool((got == value).all()):
+                wrong.append((tid, it))
+        done.append(tid)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(done) == list(range(12)) and wrong == []
+    assert ring.allocs == 2

@@ -65,6 +65,78 @@ def test_infer_many_matches_jax(engines, transfer_dtype):
     assert set(np.unique(got[0][1])) == {-1, 0, 1}
 
 
+# id: (transfer_dtype, transfer_features, columns a scan has, sizes)
+FILL_CASES = {
+    "float32": ("float32", None, 4, (600, 700, 900)),
+    "int16": ("int16", None, 4, (600, 700, 900)),
+    "float32_k3": ("float32", 3, 4, (600, 1000)),
+    "int16_k3": ("int16", 3, 4, (600, 1000)),
+    "float32_3_columns": ("float32", None, 3, (500, 800)),
+    "int16_3_columns": ("int16", None, 3, (500, 800)),
+    "float32_6_columns_f64": ("float32", None, 6, (700, 900)),
+    "int16_6_columns_f64": ("int16", 3, 6, (700, 900)),
+    "float32_on_the_boundary": ("float32", 3, 4, (BUCKET, BUCKET - 1)),
+    "int16_on_the_boundary": ("int16", None, 4, (BUCKET, 100)),
+    "float32_mixed": ("float32", None, 4, (BUCKET, BUCKET + 1)),
+    "int16_mixed": ("int16", 3, 3, (600, 1500)),
+}
+
+
+def _columns(scan, columns):
+    """The scan with `columns` columns (float64 above the config's 4), its
+    first point far out of int16's range."""
+    rng = np.random.default_rng(columns)
+    if columns > scan.shape[1]:
+        extra = rng.uniform(0, 1, (scan.shape[0], columns - scan.shape[1]))
+        scan = np.concatenate([scan, extra], axis=1)
+    scan = np.array(scan[:, :columns])
+    scan[0, :3] = 1e4
+    return scan
+
+
+@pytest.mark.parametrize("case", list(FILL_CASES))
+def test_infer_many_fills_the_stack_prepare_gives(engines, monkeypatch,
+                                                   case):
+    """The stack `infer_many` fills scan by scan is bit-equal to np.stack
+    of `_prepare`'s padded scans, in both transfer types, with fewer
+    columns shipped than the config has, scans of fewer or more columns
+    than shipped, and lengths on a bucket's boundary; a burst over two
+    buckets raises before it writes a row."""
+    transfer_dtype, k, columns, sizes = FILL_CASES[case]
+    _, teng = engines
+    eng = GroundInferenceEngine(teng.cfg, teng.model.state_dict(),
+                                threshold=THRESHOLD, bucket=BUCKET,
+                                transfer_dtype=transfer_dtype,
+                                transfer_features=k, device="cpu")
+    scans = [_columns(s, columns) for s in _scans(6, sizes)]
+    stacks, fills = [], []
+    run_many, fill = eng.run_many, eng._fill
+
+    def recorded_run_many(padded):
+        stacks.append(padded.numpy().copy())
+        return run_many(padded)
+
+    def recorded_fill(points, out):
+        fills.append(points.shape)
+        fill(points, out)
+
+    monkeypatch.setattr(eng, "run_many", recorded_run_many)
+    monkeypatch.setattr(eng, "_fill", recorded_fill)
+    if len({eng._prepare(s)[0].shape for s in scans}) > 1:
+        with pytest.raises(ValueError, match="mixed buckets"):
+            eng.infer_many(scans, eager=True)
+        assert fills == [] and stacks == []
+        assert eng.counts()["staged"] == 0
+        return
+    got = eng.infer_many(scans, eager=True)
+    want = np.stack([eng._prepare(s)[0] for s in scans])
+    stack, = stacks
+    assert stack.dtype == want.dtype and stack.shape == want.shape
+    assert stack.tobytes() == want.tobytes()
+    assert len(fills) == len(scans) == eng.counts()["staged"]
+    assert [labels.shape for _, labels in got] == [(n,) for n in sizes]
+
+
 def test_infer_many_rejects_mixed_buckets(engines):
     scans = _scans(1, (600, 1500))
     for engine in engines:

@@ -133,7 +133,8 @@ def test_engine_counts():
     engine.infer_many(scans, eager=True)
     engine.infer_many(scans[:2])
     assert engine.counts() == {"scans": 10, "replays": 0, "captures": 0,
-                               "eager_scans": 10}
+                               "eager_scans": 10, "staged": 6,
+                               "slot_allocs": 0}
 
 
 def test_trace_file_holds_the_spans(tmp_path):
@@ -235,3 +236,50 @@ def test_capture_inside_a_profiler(dev):
     assert names.count("gndnet.graph.replay") == 2
     i = names.index("gndnet.graph.capture")
     assert _parent(spans, i) == STEP
+
+
+@pytest.mark.cuda
+def test_burst_fills_its_pinned_slot(dev):
+    """A burst is padded straight into one pinned slot: two back-to-back
+    bursts of one shape allocate it once and serve what `run_many` gives
+    on the stack of `_prepare`'s padded scans; a burst waits on its slot's
+    last copy and records no staging copy, while a single scan through
+    `infer_pipelined` still records both under `upload`."""
+    cfg = _cfg()
+    rng = np.random.default_rng(6)
+    bursts = [[synthetic_scan(cfg, rng, n) for n in (POINTS, 500, 300)]
+              for _ in range(3)]
+    engine = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0),
+                                   device=dev)
+    served = [engine.infer_many(b) for b in bursts[:2]]
+    counts = engine.counts()
+    assert counts["slot_allocs"] == 1 and counts["staged"] == 6
+    for burst, answers in zip(bursts, served):
+        stack = torch.from_numpy(np.stack(
+            [engine._prepare(s)[0] for s in burst])).to(dev)
+        elev, labels = engine.run_many(stack)
+        for i, (scan, (e, lab)) in enumerate(zip(burst, answers)):
+            assert np.array_equal(e, elev[i].cpu().numpy())
+            assert np.array_equal(lab, labels[i, :len(scan)].cpu().numpy())
+            e1, l1 = engine.infer(scan)
+            np.testing.assert_allclose(e, e1, rtol=0, atol=1e-2)
+            assert lab.shape == l1.shape
+    list(engine.infer_pipelined(bursts[2], 3))
+    torch.cuda.synchronize()
+    with _card_profile() as prof:
+        engine.infer_many(bursts[2])
+        list(engine.infer_pipelined(bursts[2], 3))
+        torch.cuda.synchronize()
+    spans = _spans(prof)
+    burst_end = next(e for s, e, n in spans if n == FETCH)
+    parents = {}
+    for i, (s, _, n) in enumerate(spans):
+        side = "burst" if s < burst_end else "single"
+        parents.setdefault((side, n), []).append(_parent(spans, i))
+    assert parents[("burst", "gndnet.engine.slot_wait")] == [SUBMIT]
+    assert parents[("burst", "gndnet.engine.stack")] == [SUBMIT]
+    assert parents[("burst", "gndnet.engine.upload")] == [SUBMIT]
+    assert ("burst", "gndnet.engine.stage_copy") not in parents
+    for stage in ("gndnet.engine.slot_wait", "gndnet.engine.stage_copy"):
+        assert parents[("single", stage)] == ["gndnet.engine.upload"] * 3
+    assert engine.counts()["slot_allocs"] == 1 + 3
