@@ -3,15 +3,16 @@ served scan's elevation map and labels, and three training steps."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import pytest
 import torch
 
 from perfbench import cfg as cfgmod
 from perfbench import reference, scenes, weights
-from perfbench.tests.helpers import ROOT
-from perfbench.tests.cpu_run import TINY_CONFIG
-
-import os
+from perfbench.tests.helpers import ROOT, bench
+from perfbench.tests.cpu_run import tiny_config
 
 HERE = os.path.join(ROOT, "perfbench")
 
@@ -19,30 +20,33 @@ HERE = os.path.join(ROOT, "perfbench")
 def _setup(name: str):
     from gndnet_tpu_torch.config import GndNetConfig
 
-    cfg, keys = cfgmod.load_config(name, HERE, TINY_CONFIG[name])
+    raw = cfgmod.read_json(os.path.join(HERE, "configs", name + ".json"))
+    cfg, keys = cfgmod.load_config(name, HERE, tiny_config(name, raw))
     return cfg, GndNetConfig.from_dict(keys), weights.make(cfg, 5, "cpu")
 
 
-def test_served_scan_matches_the_reference():
+@pytest.mark.parametrize("name", [c["name"] for c in bench()["configs"]])
+def test_served_scan_matches_the_reference(name):
+    """Every configuration of the benchmark at its CPU cut
+    (`cpu_run.tiny_config`)."""
     from gndnet_tpu_torch.infer import GroundInferenceEngine
 
-    for name in ("kitti_sem", "camera"):
-        cfg, pcfg, w = _setup(name)
-        pts = scenes.scene(cfg.scene, cfg, np.random.default_rng(3),
-                           cfg.num_points)
-        engine = GroundInferenceEngine(pcfg, dict(w), threshold=0.08,
-                                       device="cpu")
-        got_map, got_lab = engine.infer(pts)
-        with torch.no_grad():
-            elev = reference.elevation(cfg, w, torch.from_numpy(pts)[None])[0]
-            lab, margin = reference.labels(cfg, torch.from_numpy(pts), elev,
-                                           0.08)
-        scale = float(elev.abs().max())
-        assert float((torch.from_numpy(got_map) - elev).abs().max()) \
-            <= 1e-4 * scale
-        sure = margin.abs() > 1e-3
-        assert torch.equal(torch.from_numpy(got_lab)[sure], lab[sure])
-        assert (lab == -1).any() and (lab == 1).any() and (lab == 0).any()
+    cfg, pcfg, w = _setup(name)
+    pts = scenes.scene(cfg.scene, cfg, np.random.default_rng(3),
+                       cfg.num_points)
+    engine = GroundInferenceEngine(pcfg, dict(w), threshold=0.08,
+                                   device="cpu")
+    got_map, got_lab = engine.infer(pts)
+    with torch.no_grad():
+        elev = reference.elevation(cfg, w, torch.from_numpy(pts)[None])[0]
+        lab, margin = reference.labels(cfg, torch.from_numpy(pts), elev,
+                                       0.08)
+    scale = float(elev.abs().max())
+    assert float((torch.from_numpy(got_map) - elev).abs().max()) \
+        <= 1e-4 * scale
+    sure = margin.abs() > 1e-3
+    assert torch.equal(torch.from_numpy(got_lab)[sure], lab[sure])
+    assert (lab == -1).any() and (lab == 1).any() and (lab == 0).any()
 
 
 def test_training_steps_match_the_reference():

@@ -4,9 +4,12 @@ every fault a cell can have coming out as not correct."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 
+from perfbench import cfg as cfgmod
 from perfbench import tracing, yardstick
 from perfbench.readers import device, host
 from perfbench.tests.helpers import (OPEN_LOOP, ROOT, bench,
@@ -40,17 +43,23 @@ def test_last_line(workload, tmp_path):
     assert all(" limit " in c for c in checks)
 
 
+# the control and the faults a cell can have, by its traffic file's driver
 FAULTS = {
-    "kitti_sem.serve_open": ["control", "altered_answer"],
-    "camera.serve_closed": ["control", "altered_answer"],
-    "kitti_sem.label_burst16": ["control", "altered_answer", "half_burst"],
-    "kitti_sem.train_b2": ["control", "unchanged_state", "half_batch",
-                           "altered_loss"],
+    "open_loop": ["control", "altered_answer"],
+    "closed_pipelined": ["control", "altered_answer"],
+    "closed_burst": ["control", "altered_answer", "half_burst"],
+    "train_loader": ["control", "unchanged_state", "half_batch",
+                     "altered_loss"],
 }
 
 
+def _driver(workload: str) -> str:
+    return cfgmod.load_cell(workload, os.path.join(ROOT, "perfbench"))[
+        "driver"]
+
+
 @pytest.mark.parametrize("workload,fault", [
-    (w, f) for w, fs in FAULTS.items() for f in fs])
+    (w, f) for w in CELLS for f in FAULTS[_driver(w)]])
 def test_control_and_faults_are_not_correct(workload, fault, tmp_path):
     line, err = tiny_run(workload, fault, root=_root(workload, tmp_path))
     assert line is not None, err[-3000:]
@@ -97,6 +106,41 @@ def test_device_readers():
     assert share == pytest.approx(100 * least / 0.003)
     run.platform = "cpu"
     assert device.mfu_pct(run) is None and device.idle_pct(run) is None
+
+
+# K10 as torch.profiler names it on the card (PERF.md section 7)
+K10_NAME = ("void (anonymous namespace)::radix_kernel<(anonymous namespace)"
+            "::Pair>(int const*, int const*, int*, int*, int, unsigned int)")
+
+
+def test_k10_roofline_reads_the_pair_sort():
+    """K10's share is its calls' least time over their device time, and
+    K1's pattern does not take the pair sort for the key sort."""
+    t = tracing.Trace(enabled=False)
+    t.t_start, t.t_stop = 10.0, 10.01
+    t.device = [(0, 40_000, K10_NAME), (50_000, 90_000, "hist_cluster")]
+    run = Run()
+    run.platform, run.trace = "gpu", t
+    run.shape = {"batch": 1, "padded": 102_400, "cells": 62_500,
+                 "kept": 60_000, "occupied": 9_000, "features": 4,
+                 "width": 64, "out_bytes": 4}
+    k1 = cfgmod.read_json(os.path.join(
+        ROOT, "perfbench", "metrics", "kernels_roofline.serve.json"))[
+            "kernels"]["K1"]
+    least = yardstick.least_seconds(*yardstick.kernel_work("K10", run.shape))
+    assert least == pytest.approx(16 * 102_400 / yardstick.HBM_BYTES_PER_S)
+    share = device.kernels_roofline(run, {"K10": "radix_kernel<[^>]*Pair>"})
+    assert share == pytest.approx(100 * least / 40e-6)
+    assert device.kernels_roofline(run, {"K1": k1}) is None
+
+
+def test_kernel_work_keeps_the_parents_values():
+    """Adding K10 moved no other kernel's bytes or operations."""
+    shape = {"batch": 2, "padded": 1000, "cells": 100, "kept": 500,
+             "occupied": 50, "features": 4, "width": 64, "out_bytes": 4}
+    parent = {"K1": (16000, 0), "K2": (73024, 515000), "K3": (9600, 2000),
+              "K4": (124224, 515000), "K6": (53024, 51200)}
+    assert {k: yardstick.kernel_work(k, shape) for k in parent} == parent
 
 
 def test_host_readers():

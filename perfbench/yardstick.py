@@ -7,7 +7,9 @@ nine SegNet convolutions, a multiply-add counted as 2; elementwise work
 adds under 1%), at the shapes the model runs (2x2 pools floor odd sizes);
 the kernels' bytes and operations are those of `chip_smoke.py`'s bounds
 (PERF.md's kernel table, "bound ms"): each input byte read once, each
-output byte written once, counted for what these inputs need.
+output byte written once, counted for what these inputs need.  The
+kernels: K1 (the packed-key sort), K10 (the (cell, index) pair sort of a
+grid whose packed key overflows 31 bits), K3, K2, K4 and K6.
 
 Peaks (NVIDIA H100 SXM data sheet, dense): float32 outside the tensor
 cores 67 TFLOP/s, which is the peak of these configurations (float32 with
@@ -85,6 +87,8 @@ def kernel_work(kernel: str, shape: dict) -> tuple:
             kept * (2 * a * width + 3))
     if kernel == "K1":        # sort of one packed key a point: a round trip
         return 2 * 4 * b * n, 0
+    if kernel == "K10":       # sort of (cell, index) int32 pairs: a round trip
+        return 2 * 2 * 4 * b * n, 0
     if kernel == "K3":        # ids read, per-cell ends and counts written
         return 4 * b * n + 2 * 4 * nc, b * n
     if kernel == "K2":        # kept rows, runs, the matrix; sums and max out
