@@ -34,6 +34,7 @@ import torch
 from gndnet_tpu_torch import _ext, native
 from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
+from gndnet_tpu_torch.ops import pillarize
 from gndnet_tpu_torch.ops.postproc import segment_cloud
 from gndnet_tpu_torch.utils.graphs import GraphCache, StepGraph
 from gndnet_tpu_torch.utils.profiling import span
@@ -188,7 +189,8 @@ class GroundInferenceEngine:
             np.full(1, _PAD_SENTINEL, np.float32))[0]
         self._graph = None      # (padded shape, StepGraph or None)
         self._many = GraphCache(self.run_many)   # infer_many's graphs
-        self._counted = {"scans": 0, "eager_scans": 0, "staged": 0}
+        self._counted = {"scans": 0, "eager_scans": 0, "staged": 0,
+                         "pair_sorted": 0}
         self._count_lock = threading.Lock()
 
     def _count(self, key: str, k: int) -> None:
@@ -203,7 +205,9 @@ class GroundInferenceEngine:
         kernel wrapper counts launches); `staged`, the scans `infer_many`
         wrote straight into the buffer the device reads (a pinned slot on
         a CUDA engine), and `slot_allocs`, the pinned buffers the rings
-        allocated (one a burst shape in a stream of bursts)."""
+        allocated (one a burst shape in a stream of bursts);
+        `pair_sorted`, the scans served through K10's (cell, index) pair
+        sort (`_sorts_pairs`), replayed or eager."""
         graph = self._graph[1] if self._graph is not None else None
         rings = [r for r in (self._ring, self._burst_ring) if r is not None]
         return {"scans": self._counted["scans"],
@@ -212,7 +216,16 @@ class GroundInferenceEngine:
                 "captures": (graph is not None) + len(self._many.graphs),
                 "eager_scans": self._counted["eager_scans"],
                 "staged": self._counted["staged"],
-                "slot_allocs": sum(r.allocs for r in rings)}
+                "slot_allocs": sum(r.allocs for r in rings),
+                "pair_sorted": self._counted["pair_sorted"]}
+
+    def _sorts_pairs(self, k: int, n: int) -> bool:
+        """Whether a call of k scans padded to n points sorts its (cell,
+        index) pairs with K10: the affine canvas at B=1 on a grid whose
+        packed key overflows (`pillarize.pair_keys`, the predicate
+        `cell_stream` branches on)."""
+        return (k == 1 and self.cfg.fused_impl == "affine"
+                and pillarize.pair_keys(self.model.geom.num_cells_3d, n))
 
     def _padded_len(self, n: int) -> int:
         """The points of a scan of n points after bucket padding."""
@@ -308,6 +321,8 @@ class GroundInferenceEngine:
         """`run`, or the replay of the graph `aot_load` captured when the
         padded shape is the one it was captured for."""
         self._count("scans", 1)
+        if self._sorts_pairs(1, padded.shape[0]):
+            self._count("pair_sorted", 1)
         with span("gndnet.engine.dispatch"):
             if self._graph is not None:
                 shape, graph = self._graph
@@ -390,6 +405,8 @@ class GroundInferenceEngine:
                 stack = torch.from_numpy(stack) if ring is None \
                     else ring.send()
             self._count("scans", len(scans))
+            if self._sorts_pairs(*shape[:2]):
+                self._count("pair_sorted", 1)
             with span("gndnet.engine.dispatch"):
                 if eager:
                     with span("gndnet.graph.eager"):

@@ -571,6 +571,14 @@ def affine_pfn_weights(kernel: torch.Tensor, bias: torch.Tensor,
     return m, w_clu, w_cen, bias
 
 
+def pair_keys(num_cells_3d: int, n: int) -> bool:
+    """Whether a scan of n points on a grid of num_cells_3d cells
+    overflows `cell_stream`'s packed 31-bit (cell, index) key, its drop id
+    included, so that the stream sorts (cell, index) pairs: K10 at B=1."""
+    idxcap = 1 << max(n - 1, 1).bit_length()
+    return num_cells_3d * idxcap + (n - 1) >= 2**31
+
+
 def cell_stream(points: torch.Tensor, ctx: PointContext,
                 geom: PillarGeometry, *, reference: bool = False):
     """The cell-sorted stream of B scans: (spts (B*N, F) rows sorted by
@@ -595,10 +603,10 @@ def cell_stream(points: torch.Tensor, ctx: PointContext,
     local = torch.where(ctx.valid, ctx.cell - item.repeat_interleave(n) * c3,
                         c3).reshape(b, n)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
-    idxcap = 1 << max(n - 1, 1).bit_length()
-    if c3 * idxcap + (n - 1) < 2**31:
+    if not pair_keys(c3, n):
         # one unique key per point and item, cell-major: the sort is
         # deterministic and needs no stability
+        idxcap = 1 << max(n - 1, 1).bit_length()
         key = (local * idxcap + iota).to(torch.int32)
         if b == 1:
             sort_fn = sort.sort_i32_plain if reference else sort.sort_i32

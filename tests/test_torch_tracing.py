@@ -134,7 +134,7 @@ def test_engine_counts():
     engine.infer_many(scans[:2])
     assert engine.counts() == {"scans": 10, "replays": 0, "captures": 0,
                                "eager_scans": 10, "staged": 6,
-                               "slot_allocs": 0}
+                               "slot_allocs": 0, "pair_sorted": 0}
 
 
 def test_trace_file_holds_the_spans(tmp_path):
