@@ -13,10 +13,13 @@ engine runs on the card unless the caller passes device='cpu'.
 On the card a scan goes host -> pinned ring slot -> device on a copy stream,
 and the compute stream waits on the copy's event, so copies overlap the
 previous scans' compute; a burst's scans are padded straight into one
-pinned slot, which goes up whole.  Where the JAX engine dispatches one
-compiled XLA executable a scan, the port launches each operation of `run`
-from Python; `aot_load` captures `run` as one CUDA graph for the artifact's
-padded shape, so a scan of that shape is one graph replay.  `infer_many`
+pinned slot, which goes up whole.  A single scan's answer comes back into
+a pinned readback slot behind that scan's own event, so fetching it does
+not wait for the scans submitted after it.  Where the JAX engine
+dispatches one compiled XLA executable a scan, the port launches each
+operation of `run` from Python; `aot_load` captures `run` as one CUDA graph
+for the artifact's padded shape, so a scan of that shape is one graph
+replay.  `infer_many`
 replays one CUDA graph of `run_many` per (K, bucket) shape on a CUDA engine
 (JAX's `_run_many` jitted once per K).
 """
@@ -125,6 +128,56 @@ class _HostRing:
         return self.send()
 
 
+class _Readback:
+    """Pinned host slots that single-scan answers come back into from the
+    card.  A slot is [key, map, labels, event]: a pinned (ny, nx) float32
+    map and (Np,) int8 label row, keyed by their shapes, and the event of
+    its last copy.
+
+    `send` takes a free slot of the answer's shape (allocating one when
+    none is free), enqueues the map's and the labels' non-blocking copies
+    into it on the current stream, behind the scan's own replay and before
+    the next scan's, and records the slot's event; `receive` waits for that
+    event alone, copies the answer out into numpy arrays the caller owns,
+    and frees the slot.  So a fetch waits for its own scan, not for the
+    scans submitted behind it, and in a stream of one shape with d scans in
+    flight the engine settles at d slots.  The device tensors need no
+    `record_stream`: the copies run on the stream that made them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.free: list = []        # slots no scan holds
+        self.allocs = 0             # slots allocated
+        self.lock = threading.Lock()
+
+    def send(self, n: int, pred: torch.Tensor, labels: torch.Tensor) -> list:
+        key = (tuple(pred.shape), labels.shape[0])
+        with self.lock:
+            i = next((i for i, s in enumerate(self.free) if s[0] == key),
+                     None)
+            slot = None if i is None else self.free.pop(i)
+        if slot is None:
+            slot = [key, torch.empty(key[0], dtype=pred.dtype,
+                                     pin_memory=True),
+                    torch.empty(key[1], dtype=labels.dtype, pin_memory=True),
+                    torch.cuda.Event()]
+            with self.lock:
+                self.allocs += 1
+        _, host_map, host_labels, done = slot
+        host_map.copy_(pred, non_blocking=True)
+        host_labels[:n].copy_(labels[:n], non_blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return slot
+
+    def receive(self, n: int, slot: list) -> tuple:
+        _, host_map, host_labels, done = slot
+        done.synchronize()
+        out = host_map.numpy().copy(), host_labels[:n].numpy().copy()
+        with self.lock:
+            self.free.append(slot)
+        return out
+
+
 class GroundInferenceEngine:
     """Scan -> (elevation map, per-point segmentation) engine.
 
@@ -147,10 +200,13 @@ class GroundInferenceEngine:
     Each stage of a scan is a host span (`utils.profiling.span`) while a
     profiler collects: `gndnet.engine.submit` (`prepare`, `upload` with its
     `slot_wait` and `stage_copy`, `dispatch` with the graph's
-    `gndnet.graph.replay`, `capture` or `eager`), then `gndnet.engine.fetch`.
-    A burst writes its scans straight into a pinned slot: `prepare`,
-    `slot_wait`, `stack` (the fill), `upload` (the copy up), `dispatch`; no
-    `stage_copy`.  `counts()` gives what the engine served.
+    `gndnet.graph.replay`, `capture` or `eager`, and in `infer` and
+    `infer_pipelined` `readback`, the answer's copies into a pinned slot),
+    then `gndnet.engine.fetch` (the wait for that scan's copies alone and
+    the copy out of its slot).  A burst writes its scans straight into a
+    pinned slot: `prepare`, `slot_wait`, `stack` (the fill), `upload` (the
+    copy up), `dispatch`; no `stage_copy`.  `counts()` gives what the
+    engine served.
     """
 
     QUANT_SCALE = 1.0 / 256.0   # 4 mm resolution, +-128 m range in int16
@@ -185,12 +241,13 @@ class GroundInferenceEngine:
         cuda = self.device.type == "cuda"
         self._ring = _HostRing(self.device, PIPELINE_DEPTH) if cuda else None
         self._burst_ring = _HostRing(self.device, 1) if cuda else None
+        self._readback = _Readback(self.device) if cuda else None
         self._pad_value = self._quantise(
             np.full(1, _PAD_SENTINEL, np.float32))[0]
         self._graph = None      # (padded shape, StepGraph or None)
         self._many = GraphCache(self.run_many)   # infer_many's graphs
         self._counted = {"scans": 0, "eager_scans": 0, "staged": 0,
-                         "pair_sorted": 0}
+                         "pair_sorted": 0, "readbacks": 0}
         self._count_lock = threading.Lock()
 
     def _count(self, key: str, k: int) -> None:
@@ -207,7 +264,11 @@ class GroundInferenceEngine:
         a CUDA engine), and `slot_allocs`, the pinned buffers the rings
         allocated (one a burst shape in a stream of bursts);
         `pair_sorted`, the scans served through K10's (cell, index) pair
-        sort (`_sorts_pairs`), replayed or eager."""
+        sort (`_sorts_pairs`), replayed or eager; `readbacks`, the
+        single-scan answers fetched through `_read_back` (`infer`,
+        `infer_pipelined`, `warmup`), and `readback_allocs`, the pinned
+        readback slots allocated (0 on a CPU engine; d in a stream of one
+        shape at depth d)."""
         graph = self._graph[1] if self._graph is not None else None
         rings = [r for r in (self._ring, self._burst_ring) if r is not None]
         return {"scans": self._counted["scans"],
@@ -217,7 +278,10 @@ class GroundInferenceEngine:
                 "eager_scans": self._counted["eager_scans"],
                 "staged": self._counted["staged"],
                 "slot_allocs": sum(r.allocs for r in rings),
-                "pair_sorted": self._counted["pair_sorted"]}
+                "pair_sorted": self._counted["pair_sorted"],
+                "readbacks": self._counted["readbacks"],
+                "readback_allocs": (self._readback.allocs
+                                    if self._readback is not None else 0)}
 
     def _sorts_pairs(self, k: int, n: int) -> bool:
         """Whether a call of k scans padded to n points sorts its (cell,
@@ -331,40 +395,65 @@ class GroundInferenceEngine:
             with span("gndnet.graph.eager"):
                 return self.run(padded)
 
+    def _launch(self, points: np.ndarray) -> tuple:
+        """Prepare, upload and dispatch one scan: (n, pred, labels), the
+        answer on the device, ready on the current stream."""
+        with span("gndnet.engine.prepare"):
+            padded, n = self._prepare(points)
+        pred, labels = self._dispatch(self._upload(padded))
+        return n, pred, labels
+
     def infer_async(self, points: np.ndarray) -> tuple:
         """Non-blocking submit: returns (n, pred_dev, labels_dev), device
         tensors on the current stream, without waiting for the card.
         Interleave several calls before materialising to overlap the
         host-to-device copies with compute."""
         with span("gndnet.engine.submit"):
-            with span("gndnet.engine.prepare"):
-                padded, n = self._prepare(points)
-            pred, labels = self._dispatch(self._upload(padded))
-        return n, pred, labels
+            return self._launch(points)
 
-    @staticmethod
-    def _fetch(n: int, pred: torch.Tensor, labels: torch.Tensor) -> tuple:
+    def _read_back(self, n: int, pred: torch.Tensor,
+                   labels: torch.Tensor) -> tuple:
+        """Start a scan's answer on its way to the host: (n, what `_fetch`
+        takes), on a CUDA engine the pinned readback slot its copies were
+        enqueued into, on the CPU the answer's own numpy views."""
+        with span("gndnet.engine.readback"):
+            if self._readback is None:
+                return n, (pred.numpy(), labels[:n].numpy())
+            return n, self._readback.send(n, pred, labels)
+
+    def _submit(self, points: np.ndarray) -> tuple:
+        """`infer_async` with the answer's readback enqueued in its submit."""
+        with span("gndnet.engine.submit"):
+            return self._read_back(*self._launch(points))
+
+    def _fetch(self, n: int, slot) -> tuple:
+        """The answer `_read_back` started, as numpy arrays the caller owns
+        (on the card: once its own copies are done)."""
         with span("gndnet.engine.fetch"):
-            return pred.cpu().numpy(), labels[:n].cpu().numpy()
+            self._count("readbacks", 1)
+            if self._readback is None:
+                return slot
+            return self._readback.receive(n, slot)
 
     def infer(self, points: np.ndarray) -> tuple:
         """points: (N, >=3) float32 (extra columns beyond
         cfg.input_features are ignored, missing ones zero-filled).
         Returns (elevation (ny, nx) np.float32, labels (N,) np.int8 with
         values {1: obstacle, 0: ground, -1: out of grid})."""
-        return self._fetch(*self.infer_async(points))
+        return self._fetch(*self._submit(points))
 
     def infer_pipelined(self, scans, depth: int = PIPELINE_DEPTH):
         """Generator yielding (elevation, labels) per scan, in submission
         order, with `depth` scans in flight, so the copies overlap compute
-        across scans (sustained-throughput serving)."""
+        across scans (sustained-throughput serving): a fetch waits for its
+        own scan's readback, not for the scans behind it."""
         if depth < 1:
             raise ValueError(f"depth must be at least 1, got {depth}")
         if self._ring is not None:
             self._ring.reserve(depth)
         inflight = deque()
         for scan in scans:
-            inflight.append(self.infer_async(scan))
+            inflight.append(self._submit(scan))
             if len(inflight) >= depth:
                 yield self._fetch(*inflight.popleft())
         while inflight:
@@ -483,7 +572,7 @@ class GroundInferenceEngine:
         never through a captured graph.  Returns the seconds it took."""
         t0 = time.perf_counter()
         padded, m = self._prepare(self._plane(n or self.cfg.num_points))
-        self._fetch(m, *self.run(self._upload(padded)))
+        self._fetch(*self._read_back(m, *self.run(self._upload(padded))))
         return time.perf_counter() - t0
 
 

@@ -1001,3 +1001,39 @@ def test_host_ring_holds_a_slot_from_acquire_to_send(dev):
     assert not any(t.is_alive() for t in threads)
     assert sorted(done) == list(range(12)) and wrong == []
     assert ring.allocs == 2
+
+
+def test_pipelined_answers_come_back_through_pinned_slots(dev, tmp_path,
+                                                          monkeypatch):
+    """`infer_pipelined(depth=3)` over 12 scans of mixed lengths in one
+    bucket on a graph engine: each answer comes back through a pinned
+    readback slot behind its own scan's event and stays the caller's, so
+    after the stream every held answer equals `infer`'s for its scan to
+    the bit.  Three slots serve the stream and the single calls after it,
+    and no pageable `.cpu()` copy is left on the single-scan path."""
+    cfg = GndNetConfig(**SMALL_BF16)
+    eng = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0),
+                                bucket=1024)
+    path = str(tmp_path / "engine.aot")
+    eng.aot_save(path, n=3072)
+    eng.aot_load(path)
+    rng = np.random.default_rng(10)
+    scans = [synthetic_scan(cfg, rng, int(n))
+             for n in rng.integers(2049, 3073, 12)]
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a pageable .cpu() copy on the fetch path")
+
+    with monkeypatch.context() as patched:
+        patched.setattr(torch.Tensor, "cpu", refuse)
+        held = list(eng.infer_pipelined(scans, depth=3))
+    counts = eng.counts()
+    assert counts["readbacks"] == len(scans) == counts["replays"]
+    assert counts["readback_allocs"] == 3
+    for scan, (elev, labels) in zip(scans, held):
+        e1, l1 = eng.infer(scan)
+        assert labels.shape == (len(scan),)
+        assert np.array_equal(elev, e1) and np.array_equal(labels, l1)
+    counts = eng.counts()
+    assert counts["readbacks"] == 2 * len(scans)
+    assert counts["readback_allocs"] == 3

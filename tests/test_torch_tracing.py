@@ -39,6 +39,8 @@ ENGINE = [(SUBMIT, None), ("gndnet.engine.prepare", SUBMIT),
           ("gndnet.graph.eager", DISPATCH), (FETCH, None)]
 CASES = ([("infer", s, p, 1) for s, p in ENGINE]
          + [("infer_pipelined", s, p, PIPELINED) for s, p in ENGINE]
+         + [("infer", "gndnet.engine.readback", SUBMIT, 1),
+            ("infer_pipelined", "gndnet.engine.readback", SUBMIT, PIPELINED)]
          + [("infer_many", s, p, 1) for s, p in ENGINE]
          + [("infer_many", "gndnet.engine.stack", SUBMIT, 1)]
          + [("train_step", STEP, None, 1),
@@ -134,7 +136,8 @@ def test_engine_counts():
     engine.infer_many(scans[:2])
     assert engine.counts() == {"scans": 10, "replays": 0, "captures": 0,
                                "eager_scans": 10, "staged": 6,
-                               "slot_allocs": 0, "pair_sorted": 0}
+                               "slot_allocs": 0, "pair_sorted": 0,
+                               "readbacks": 4, "readback_allocs": 0}
 
 
 def test_trace_file_holds_the_spans(tmp_path):
