@@ -1507,7 +1507,7 @@ def host_seconds(fn, items) -> float:
 
 def graph_case(name, cfg, sd, scans, other, n_points, device, want,
                tmp) -> tuple:
-    """aot_save, aot_load into a fresh engine (one CUDA graph of `run`),
+    """aot_save, aot_load into a fresh engine (one CUDA graph of a scan),
     the graph against the eager engine's `run` on the same padded input,
     the kernels of a replay, an eagerly served scan of another bucket, and
     the host-clock and device times of both engines.  Returns (result,
@@ -1520,8 +1520,8 @@ def graph_case(name, cfg, sd, scans, other, n_points, device, want,
     t0 = time.perf_counter()
     served.aot_load(path)
     capture_s = time.perf_counter() - t0
-    shape, graph = served._graph
-    require(graph is not None, f"{name}: aot_load captured no graph")
+    shape, graphs = served._aot_shape, served._graphs
+    require(len(graphs.graphs) == 1, f"{name}: aot_load captured no graph")
     padded = [torch.from_numpy(eager._prepare(s)[0]).to(device)
               for s in scans]
     require(all(tuple(p.shape) == shape for p in padded),
@@ -1530,9 +1530,9 @@ def graph_case(name, cfg, sd, scans, other, n_points, device, want,
     worst_elev, mismatch = 0.0, 0
     for p in padded:
         e_eager, l_eager = eager.run(p)
-        replays = graph.replays
+        replays = graphs.replays
         e_graph, l_graph = served._dispatch(p)
-        require(graph.replays == replays + 1, f"{name}: not replayed")
+        require(graphs.replays == replays + 1, f"{name}: not replayed")
         if name == "scatter":
             worst_elev = max(worst_elev,
                              float((e_graph - e_eager).abs().max()))
@@ -2659,11 +2659,13 @@ def check_bench_line(line: dict, what: str, platform: str = "gpu") -> None:
             f"{what}: rates {rates}")
     if line.get("engine") == "graph":
         # every call of a graphed program replays; the calls it made
-        # outside a replay are its warm-up and capture, once per shape
+        # outside a replay are its warm-up and capture, once per shape; a
+        # served engine's `aot_load` replays its capture once more
         done, outside = {"train": ("steps", "eager_steps"),
                          "batched": ("calls", "eager_calls")}.get(
             line["mode"], ("scans", None))
-        require(line["replays"] == line[done] > 0,
+        require(line["replays"] == line[done] + (outside is None)
+                and line[done] > 0,
                 f"{what}: the graph replayed {line['replays']} of its "
                 f"{line[done]} {done}")
         if outside is not None:
@@ -3062,11 +3064,11 @@ def graphs_phase(cfg, sd, rng, n_points, device) -> dict:
     engine = GroundInferenceEngine(cfg, sd, device=device)
     scans = [synthetic_scan(cfg, rng, n_points) for _ in range(16)]
     for k in (4, 16):
-        stacks = [engine._upload(np.stack([engine._prepare(s)[0] for s in
-                                           scans[i:] + scans[:i]][:k]))
-                  for i in range(GRAPH_STEPS)]
+        stacks = [torch.from_numpy(np.stack(
+            [engine._prepare(s)[0] for s in scans[i:] + scans[:i]][:k])).to(
+                device) for i in range(GRAPH_STEPS)]
         res, paths[f"graphs_infer_many_K{k}"] = graph_calls(
-            f"infer_many_K{k}", engine._many, engine.run_many,
+            f"infer_many_K{k}", engine._graphs, engine.run_many,
             [(x,) for x in stacks], {"K3": 1, "K2": 1},
             f"graphs_infer_many_K{k}")
         many = engine.infer_many(scans[:k])

@@ -12,20 +12,21 @@ engine runs on the card unless the caller passes device='cpu'.
 
 On the card a scan goes host -> pinned ring slot -> device on a copy stream,
 and the compute stream waits on the copy's event, so copies overlap the
-previous scans' compute; a burst's scans are padded straight into one
-pinned slot, which goes up whole.  A single scan's answer comes back into
-a pinned readback slot behind that scan's own event, so fetching it does
-not wait for the scans submitted after it.  Where the JAX engine
-dispatches one compiled XLA executable a scan, the port launches each
-operation of `run` from Python; `aot_load` captures `run` as one CUDA graph
-for the artifact's padded shape, so a scan of that shape is one graph
-replay.  `infer_many`
-replays one CUDA graph of `run_many` per (K, bucket) shape on a CUDA engine
-(JAX's `_run_many` jitted once per K).
+previous scans' compute; a single scan, like a burst's scans, is padded
+straight into its pinned slot (`_fill`), which goes up whole.  A single
+scan's answer comes back into a pinned readback slot behind that scan's
+own event, so fetching it does not wait for the scans submitted after it.
+Where the JAX engine dispatches one compiled XLA executable a scan, the
+port launches each operation of `run` from Python, and keeps its CUDA
+graphs in one `GraphCache` of `run_many`: `infer_many` replays one per
+(K, bucket) shape (JAX's `_run_many` jitted once per K), and `aot_load`
+captures the artifact's padded shape as K=1, so a single scan of that
+shape is one graph replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import traceback
@@ -39,7 +40,7 @@ from gndnet_tpu_torch.config import GndNetConfig
 from gndnet_tpu_torch.models.gndnet import GroundEstimatorNet
 from gndnet_tpu_torch.ops import pillarize
 from gndnet_tpu_torch.ops.postproc import segment_cloud
-from gndnet_tpu_torch.utils.graphs import GraphCache, StepGraph
+from gndnet_tpu_torch.utils.graphs import GraphCache
 from gndnet_tpu_torch.utils.profiling import span
 
 _PAD_SENTINEL = 1e9  # pads bin far out of range -> seg label -1, no pillar
@@ -116,17 +117,6 @@ class _HostRing:
         dev.record_stream(compute)
         return dev
 
-    def upload(self, padded: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(padded)
-        host = self.acquire(src.shape, src.dtype)
-        try:
-            with span("gndnet.engine.stage_copy"):
-                host.copy_(src)
-        except BaseException:
-            self.release()
-            raise
-        return self.send()
-
 
 class _Readback:
     """Pinned host slots that single-scan answers come back into from the
@@ -199,14 +189,14 @@ class GroundInferenceEngine:
 
     Each stage of a scan is a host span (`utils.profiling.span`) while a
     profiler collects: `gndnet.engine.submit` (`prepare`, `upload` with its
-    `slot_wait` and `stage_copy`, `dispatch` with the graph's
-    `gndnet.graph.replay`, `capture` or `eager`, and in `infer` and
-    `infer_pipelined` `readback`, the answer's copies into a pinned slot),
-    then `gndnet.engine.fetch` (the wait for that scan's copies alone and
-    the copy out of its slot).  A burst writes its scans straight into a
-    pinned slot: `prepare`, `slot_wait`, `stack` (the fill), `upload` (the
-    copy up), `dispatch`; no `stage_copy`.  `counts()` gives what the
-    engine served.
+    `slot_wait` and `stage_copy`, the scan's fill of its pinned slot,
+    `dispatch` with the graph's `gndnet.graph.replay`, `capture` or
+    `eager`, and in `infer` and `infer_pipelined` `readback`, the answer's
+    copies into a pinned slot), then `gndnet.engine.fetch` (the wait for
+    that scan's copies alone and the copy out of its slot).  A burst fills
+    its slot under `stack` and sends it under `upload`: `prepare`,
+    `slot_wait`, `stack`, `upload`, `dispatch`; no `stage_copy`.
+    `counts()` gives what the engine served.
     """
 
     QUANT_SCALE = 1.0 / 256.0   # 4 mm resolution, +-128 m range in int16
@@ -244,10 +234,12 @@ class GroundInferenceEngine:
         self._readback = _Readback(self.device) if cuda else None
         self._pad_value = self._quantise(
             np.full(1, _PAD_SENTINEL, np.float32))[0]
-        self._graph = None      # (padded shape, StepGraph or None)
-        self._many = GraphCache(self.run_many)   # infer_many's graphs
-        self._counted = {"scans": 0, "eager_scans": 0, "staged": 0,
-                         "pair_sorted": 0, "readbacks": 0}
+        # every graph of the engine: a burst's (K, Np, k), aot_load's scan
+        # as (1, Np, k)
+        self._graphs = GraphCache(self.run_many)
+        self._aot_shape = None  # the (Np, k) of a scan that replays
+        self._counted = {"scans": 0, "eager_scans": 0, "pair_sorted": 0,
+                         "readbacks": 0}
         self._count_lock = threading.Lock()
 
     def _count(self, key: str, k: int) -> None:
@@ -256,27 +248,23 @@ class GroundInferenceEngine:
 
     def counts(self) -> dict:
         """`scans` served (`_dispatch`, `infer_many`), `replays` and
-        `captures` of the engine's CUDA graphs, and `eager_scans`: the
+        `captures` of the engine's CUDA graphs (its one `GraphCache`; a
+        capture replays once, `aot_load`'s too), and `eager_scans`: the
         scans `run_many` ran outside a replay (`run`, `warmup`, eager
         bursts, and each graph's warm-up and capture, so as many as a
-        kernel wrapper counts launches); `staged`, the scans `infer_many`
-        wrote straight into the buffer the device reads (a pinned slot on
-        a CUDA engine), and `slot_allocs`, the pinned buffers the rings
-        allocated (one a burst shape in a stream of bursts);
+        kernel wrapper counts launches); `slot_allocs`, the pinned buffers
+        the rings allocated (one a burst shape in a stream of bursts);
         `pair_sorted`, the scans served through K10's (cell, index) pair
         sort (`_sorts_pairs`), replayed or eager; `readbacks`, the
         single-scan answers fetched through `_read_back` (`infer`,
         `infer_pipelined`, `warmup`), and `readback_allocs`, the pinned
         readback slots allocated (0 on a CPU engine; d in a stream of one
         shape at depth d)."""
-        graph = self._graph[1] if self._graph is not None else None
         rings = [r for r in (self._ring, self._burst_ring) if r is not None]
         return {"scans": self._counted["scans"],
-                "replays": ((graph.replays if graph is not None else 0)
-                            + self._many.replays),
-                "captures": (graph is not None) + len(self._many.graphs),
+                "replays": self._graphs.replays,
+                "captures": len(self._graphs.graphs),
                 "eager_scans": self._counted["eager_scans"],
-                "staged": self._counted["staged"],
                 "slot_allocs": sum(r.allocs for r in rings),
                 "pair_sorted": self._counted["pair_sorted"],
                 "readbacks": self._counted["readbacks"],
@@ -302,29 +290,21 @@ class GroundInferenceEngine:
                            -32768, 32767).astype(np.int16)
         return points
 
-    def _pad(self, points: np.ndarray) -> np.ndarray:
-        n = points.shape[0]
-        target = self._padded_len(n)
-        if n != target:
-            pad = np.full((target - n, points.shape[1]), _PAD_SENTINEL,
-                          points.dtype)
-            points = np.concatenate([points, pad])
-        return self._quantise(points)
-
     def _prepare(self, points: np.ndarray) -> tuple:
+        """One scan as the engine ships it: (its padded (Np, k) host array
+        in the transfer type, its length)."""
         points = np.asarray(points, np.float32)
-        k = self.transfer_features
-        if points.shape[1] < k:
-            points = np.concatenate(
-                [points, np.zeros((points.shape[0], k - points.shape[1]),
-                                  np.float32)], axis=1)
-        return self._pad(points[:, :k]), points.shape[0]
+        out = np.empty((self._padded_len(points.shape[0]),
+                        self.transfer_features), self.transfer_dtype)
+        self._fill(points, out)
+        return out, points.shape[0]
 
     def _fill(self, points: np.ndarray, out: np.ndarray) -> None:
-        """Write a float32 scan into `out`, one (Np, k) row of a burst's
-        stack, as `_prepare` pads it: its leading k columns (zeros where
-        it has fewer), `_PAD_SENTINEL` rows from its length on, in the
-        transfer type; bit-equal to `_prepare(points)[0]`."""
+        """Write a float32 scan into `out`, its (Np, k) padded form (a
+        single scan's pinned slot, a row of a burst's, `_prepare`'s array):
+        its leading k columns (zeros where it has fewer), `_PAD_SENTINEL`
+        rows from its length on, all in the transfer type.  The one writer
+        of that layout."""
         n = points.shape[0]
         c = min(points.shape[1], self.transfer_features)
         out[:n, :c] = self._quantise(points[:, :c])
@@ -338,13 +318,36 @@ class GroundInferenceEngine:
         item = 2 if self.transfer_dtype == "int16" else 4
         return padded * self.transfer_features * item
 
-    def _upload(self, padded: np.ndarray) -> torch.Tensor:
-        """A prepared scan on the engine's device, ready on the current
+    def _stage(self, ring, scans: list, shape: tuple, fill: str,
+               send: str | None = None) -> torch.Tensor:
+        """Acquire the next slot of `ring`, of `shape` ((Np, k) for one
+        scan, (K, Np, k) for a burst), `_fill` the float32 `scans` into it
+        inside the span `fill`, and send it, inside the span `send` where
+        one is named: the scans on the engine's device, ready on the
+        current stream.  A fill that raises gives the slot back unsent.  A
+        CPU engine (no ring) fills an `np.empty` and serves it as it is."""
+        dtype = self.transfer_dtype
+        out = (np.empty(shape, dtype) if ring is None
+               else ring.acquire(shape, getattr(torch, dtype)).numpy())
+        try:
+            with span(fill):
+                for points, row in zip(scans, out.reshape(-1, *shape[-2:])):
+                    self._fill(points, row)
+        except BaseException:
+            if ring is not None:
+                ring.release()
+            raise
+        with span(send) if send else contextlib.nullcontext():
+            return torch.from_numpy(out) if ring is None else ring.send()
+
+    def _upload(self, points: np.ndarray) -> torch.Tensor:
+        """A float32 scan padded into the next slot of the single-scan ring
+        and sent: (Np, k) on the engine's device, ready on the current
         stream."""
+        shape = (self._padded_len(points.shape[0]), self.transfer_features)
         with span("gndnet.engine.upload"):
-            if self._ring is None:
-                return torch.from_numpy(padded)
-            return self._ring.upload(padded)
+            return self._stage(self._ring, [points], shape,
+                               "gndnet.engine.stage_copy")
 
     def device_points(self, padded: torch.Tensor) -> torch.Tensor:
         """Prepared (padded) scans, (Np, k) or stacked (K, Np, k) -> the
@@ -382,16 +385,16 @@ class GroundInferenceEngine:
         return pred, labels.to(torch.int8)
 
     def _dispatch(self, padded: torch.Tensor):
-        """`run`, or the replay of the graph `aot_load` captured when the
-        padded shape is the one it was captured for."""
+        """`run`, or, for the padded shape `aot_load` recorded, the
+        engine's graph of `run_many` for that one scan (eager on the
+        CPU)."""
         self._count("scans", 1)
         if self._sorts_pairs(1, padded.shape[0]):
             self._count("pair_sorted", 1)
         with span("gndnet.engine.dispatch"):
-            if self._graph is not None:
-                shape, graph = self._graph
-                if graph is not None and tuple(padded.shape) == shape:
-                    return graph(padded)
+            if tuple(padded.shape) == self._aot_shape:
+                pred, labels = self._graphs(padded[None])
+                return pred[0], labels[0]
             with span("gndnet.graph.eager"):
                 return self.run(padded)
 
@@ -399,9 +402,9 @@ class GroundInferenceEngine:
         """Prepare, upload and dispatch one scan: (n, pred, labels), the
         answer on the device, ready on the current stream."""
         with span("gndnet.engine.prepare"):
-            padded, n = self._prepare(points)
-        pred, labels = self._dispatch(self._upload(padded))
-        return n, pred, labels
+            points = np.asarray(points, np.float32)
+        pred, labels = self._dispatch(self._upload(points))
+        return points.shape[0], pred, labels
 
     def infer_async(self, points: np.ndarray) -> tuple:
         """Non-blocking submit: returns (n, pred_dev, labels_dev), device
@@ -477,22 +480,8 @@ class GroundInferenceEngine:
                     raise ValueError(f"scans fall into mixed buckets "
                                      f"{shapes}; pad or split the burst")
             shape = (len(scans), *shapes.pop())
-            ring = self._burst_ring
-            stack = (np.empty(shape, self.transfer_dtype) if ring is None
-                     else ring.acquire(shape, getattr(
-                         torch, self.transfer_dtype)).numpy())
-            try:
-                with span("gndnet.engine.stack"):
-                    for points, row in zip(scans, stack):
-                        self._fill(points, row)
-            except BaseException:
-                if ring is not None:
-                    ring.release()
-                raise
-            self._count("staged", len(scans))
-            with span("gndnet.engine.upload"):
-                stack = torch.from_numpy(stack) if ring is None \
-                    else ring.send()
+            stack = self._stage(self._burst_ring, scans, shape,
+                                "gndnet.engine.stack", "gndnet.engine.upload")
             self._count("scans", len(scans))
             if self._sorts_pairs(*shape[:2]):
                 self._count("pair_sorted", 1)
@@ -501,7 +490,7 @@ class GroundInferenceEngine:
                     with span("gndnet.graph.eager"):
                         preds, labels = self.run_many(stack)
                 else:
-                    preds, labels = self._many(stack)
+                    preds, labels = self._graphs(stack)
         with span("gndnet.engine.fetch"):
             preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
             return [(preds[i], labels[i][:s.shape[0]])
@@ -510,8 +499,8 @@ class GroundInferenceEngine:
     def _example_input(self, n: int | None = None) -> np.ndarray:
         """A padded input of the shape the engine serves."""
         n = n or self.cfg.num_points
-        pts = np.zeros((n, self.transfer_features), np.float32)
-        return self._pad(pts)
+        return self._prepare(np.zeros((n, self.transfer_features),
+                                      np.float32))[0]
 
     def aot_save(self, path: str, n: int | None = None) -> int:
         """Build every kernel the engine's path launches (the port's
@@ -531,13 +520,15 @@ class GroundInferenceEngine:
         })
 
     def aot_load(self, path: str) -> None:
-        """Serve from an `aot_save` artifact: on a CUDA engine, capture one
-        CUDA graph of `run` for the padded shape the artifact records (it
-        may differ from the default); scans of that shape replay it, any
-        other shape runs `run` eagerly.  Raises ValueError if the artifact
-        does not fit this engine or process, and whatever the capture
-        raises: a CUDA engine never serves eagerly in its stead.  A CPU
-        engine checks the artifact and serves eagerly."""
+        """Serve from an `aot_save` artifact: record the padded shape it
+        holds (it may differ from the default) and, on a CUDA engine,
+        capture the engine's graph of `run_many` for one scan of that shape
+        (a flat-plane scan, captured and replayed once); scans of that
+        shape replay it, any other shape runs `run` eagerly and is never
+        captured.  Raises ValueError if the artifact does not fit this
+        engine or process, and whatever the capture raises: a CUDA engine
+        never serves eagerly in its stead.  A CPU engine checks the
+        artifact and serves eagerly."""
         from gndnet_tpu_torch.utils.compile_cache import load_compiled
 
         meta = load_compiled(path, self.device)
@@ -547,15 +538,9 @@ class GroundInferenceEngine:
                 f"AOT artifact was compiled for transfer_dtype={saved!r}, "
                 f"engine uses {self.transfer_dtype!r}")
         shape = tuple(meta.get("example_shape", self._example_input().shape))
-        self._graph = (shape, self._capture(shape))
-
-    def _capture(self, shape: tuple):
-        """The graph of `run` for `shape` on a CUDA engine; None on the
-        CPU, which has no graphs."""
-        if self.device.type != "cuda":
-            return None
-        padded, _ = self._prepare(self._plane(shape[0]))
-        return StepGraph(self.run, (self._upload(padded),))
+        if self.device.type == "cuda":
+            self._graphs(self._upload(self._plane(shape[0]))[None])
+        self._aot_shape = shape
 
     def _plane(self, n: int) -> np.ndarray:
         """A synthetic flat-plane scan of n points."""
@@ -571,8 +556,8 @@ class GroundInferenceEngine:
         `dryrun`, ros_node.py:73-95), which builds and loads the kernels;
         never through a captured graph.  Returns the seconds it took."""
         t0 = time.perf_counter()
-        padded, m = self._prepare(self._plane(n or self.cfg.num_points))
-        self._fetch(*self._read_back(m, *self.run(self._upload(padded))))
+        pts = self._plane(n or self.cfg.num_points)
+        self._fetch(*self._read_back(len(pts), *self.run(self._upload(pts))))
         return time.perf_counter() - t0
 
 

@@ -790,10 +790,12 @@ def test_infer_many_matches_infer(dev, grid):
 
 @pytest.mark.parametrize("impl", ["affine", "sorted"])
 def test_aot_graph_replays_match_eager(dev, impl, tmp_path):
-    """aot_load captures one CUDA graph of `run` for the artifact's bucket
-    shape: replays of it (no wrapper counts them) give the eager `run`'s
-    bits, `infer` / `infer_pipelined` / `StreamingEngine` serve through it,
-    and a scan of another bucket runs eagerly (its kernels counted)."""
+    """aot_load captures one CUDA graph of `run_many` for one scan of the
+    artifact's bucket shape, in the engine's graph cache: replays of it
+    (no wrapper counts them) give the eager `run`'s bits, `infer` /
+    `infer_pipelined` / `StreamingEngine` serve through it, and a scan of
+    another bucket runs eagerly (its kernels counted) and is never
+    captured."""
     from gndnet_tpu_torch.infer import StreamingEngine
 
     cfg = GndNetConfig(pc_range=(0.0, -8.0, -4.0, 16.0, 8.0, 4.0),
@@ -807,8 +809,10 @@ def test_aot_graph_replays_match_eager(dev, impl, tmp_path):
     assert eager.aot_save(path, n=3000) > 0
     served = GroundInferenceEngine(cfg, sd, bucket=1024)
     served.aot_load(path)
-    shape, graph = served._graph
-    assert shape == (3072, 4) and graph is not None
+    graphs = served._graphs
+    assert served._aot_shape == (3072, 4)
+    assert [key for key, in graphs.graphs] == [((1, 3072, 4), torch.float32)]
+    replays = graphs.replays            # aot_load's own: capture, replay
     rng = np.random.default_rng(2)
     scans = [synthetic_scan(cfg, rng, n) for n in (3000, 2500, 3072)]
     counter, per_scan = ((sort.sort_i32, 1) if impl == "affine"
@@ -823,13 +827,14 @@ def test_aot_graph_replays_match_eager(dev, impl, tmp_path):
         assert np.array_equal(e3, e1.cpu().numpy())
         assert np.array_equal(l3, l1[:len(scan)].cpu().numpy())
     assert counter.launches == before + per_scan * len(scans)   # eager only
-    assert graph.replays == 2 * len(scans)
+    assert graphs.replays - replays == 2 * len(scans)
     piped = list(served.infer_pipelined(scans, depth=2))
     assert all(np.array_equal(a[0], b[0]) for a, b in
                zip(piped, map(served.infer, scans)))
     before = counter.launches
     other = served.infer(synthetic_scan(cfg, rng, 5000))      # 5120 rows
     assert counter.launches > before and other[1].shape == (5000,)
+    assert len(graphs.graphs) == 1
     srv = StreamingEngine(served, warmup=False,
                           use_native_mailbox=False).start()
     try:
@@ -959,7 +964,7 @@ def test_infer_many_graph_matches_eager(dev):
         want = eng.infer_many(burst, eager=True)
         for (a, b), (c, d) in zip(got, want):
             assert np.array_equal(a, c) and np.array_equal(b, d)
-    assert eng._many.replays == 3 and len(eng._many.graphs) == 2
+    assert eng._graphs.replays == 3 and len(eng._graphs.graphs) == 2
 
 
 def test_host_ring_holds_a_slot_from_acquire_to_send(dev):
@@ -1017,6 +1022,7 @@ def test_pipelined_answers_come_back_through_pinned_slots(dev, tmp_path,
     path = str(tmp_path / "engine.aot")
     eng.aot_save(path, n=3072)
     eng.aot_load(path)
+    replays = eng.counts()["replays"]   # aot_load's own: capture, replay
     rng = np.random.default_rng(10)
     scans = [synthetic_scan(cfg, rng, int(n))
              for n in rng.integers(2049, 3073, 12)]
@@ -1028,7 +1034,7 @@ def test_pipelined_answers_come_back_through_pinned_slots(dev, tmp_path,
         patched.setattr(torch.Tensor, "cpu", refuse)
         held = list(eng.infer_pipelined(scans, depth=3))
     counts = eng.counts()
-    assert counts["readbacks"] == len(scans) == counts["replays"]
+    assert counts["readbacks"] == len(scans) == counts["replays"] - replays
     assert counts["readback_allocs"] == 3
     for scan, (elev, labels) in zip(scans, held):
         e1, l1 = eng.infer(scan)

@@ -94,16 +94,24 @@ def _columns(scan, columns):
     return scan
 
 
-@pytest.mark.parametrize("case", list(FILL_CASES))
+@pytest.mark.parametrize("case,path", [
+    pytest.param(case, path, id=case if path == "burst" else f"{case}-{path}")
+    for path in ("burst", "single") for case in FILL_CASES])
 def test_infer_many_fills_the_stack_prepare_gives(engines, monkeypatch,
-                                                   case):
-    """The stack `infer_many` fills scan by scan is bit-equal to np.stack
-    of `_prepare`'s padded scans, in both transfer types, with fewer
-    columns shipped than the config has, scans of fewer or more columns
-    than shipped, and lengths on a bucket's boundary; a burst over two
-    buckets raises before it writes a row."""
+                                                   case, path):
+    """What reaches `run_many` is bit-equal to the JAX engine's `_prepare`
+    of each scan, built with the same transfer type and columns: a burst
+    through `infer_many` (their np.stack) and single scans through
+    `infer_pipelined`, in both transfer types, with fewer columns shipped
+    than the config has, scans of fewer or more columns than shipped, and
+    lengths on a bucket's boundary.  `_fill` writes each scan once; a
+    burst over two buckets raises before it writes a row, while single
+    scans of two buckets are served each in its own."""
     transfer_dtype, k, columns, sizes = FILL_CASES[case]
-    _, teng = engines
+    jeng, teng = engines
+    oracle = JaxEngine(jeng.cfg, jeng._variables, threshold=THRESHOLD,
+                       bucket=BUCKET, transfer_dtype=transfer_dtype,
+                       transfer_features=k)
     eng = GroundInferenceEngine(teng.cfg, teng.model.state_dict(),
                                 threshold=THRESHOLD, bucket=BUCKET,
                                 transfer_dtype=transfer_dtype,
@@ -112,9 +120,9 @@ def test_infer_many_fills_the_stack_prepare_gives(engines, monkeypatch,
     stacks, fills = [], []
     run_many, fill = eng.run_many, eng._fill
 
-    def recorded_run_many(padded):
+    def recorded_run_many(padded, **kw):
         stacks.append(padded.numpy().copy())
-        return run_many(padded)
+        return run_many(padded, **kw)
 
     def recorded_fill(points, out):
         fills.append(points.shape)
@@ -122,18 +130,24 @@ def test_infer_many_fills_the_stack_prepare_gives(engines, monkeypatch,
 
     monkeypatch.setattr(eng, "run_many", recorded_run_many)
     monkeypatch.setattr(eng, "_fill", recorded_fill)
-    if len({eng._prepare(s)[0].shape for s in scans}) > 1:
-        with pytest.raises(ValueError, match="mixed buckets"):
-            eng.infer_many(scans, eager=True)
-        assert fills == [] and stacks == []
-        assert eng.counts()["staged"] == 0
-        return
-    got = eng.infer_many(scans, eager=True)
-    want = np.stack([eng._prepare(s)[0] for s in scans])
-    stack, = stacks
-    assert stack.dtype == want.dtype and stack.shape == want.shape
-    assert stack.tobytes() == want.tobytes()
-    assert len(fills) == len(scans) == eng.counts()["staged"]
+    want = [oracle._prepare(s)[0] for s in scans]
+    if path == "burst":
+        if len({w.shape for w in want}) > 1:
+            with pytest.raises(ValueError, match="mixed buckets"):
+                eng.infer_many(scans, eager=True)
+            assert fills == [] and stacks == []
+            assert eng.counts()["scans"] == 0
+            return
+        got = eng.infer_many(scans, eager=True)
+        want = [np.stack(want)]
+    else:
+        got = list(eng.infer_pipelined(scans, 2))
+        want = [w[None] for w in want]
+    assert len(stacks) == len(want)
+    for stack, w in zip(stacks, want):
+        assert stack.dtype == w.dtype and stack.shape == w.shape
+        assert stack.tobytes() == w.tobytes()
+    assert len(fills) == len(scans) == eng.counts()["scans"]
     assert [labels.shape for _, labels in got] == [(n,) for n in sizes]
 
 

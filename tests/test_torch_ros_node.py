@@ -156,7 +156,8 @@ def test_node_writes_and_loads_the_aot_artifact(node_module, tmp_path):
     try:
         assert path.exists()
         engine = node.engine.engine
-        assert engine._graph == (tuple(engine._example_input().shape), None)
+        assert engine._aot_shape == tuple(engine._example_input().shape)
+        assert engine.counts()["captures"] == 0
         assert _ext.BUILD_DIR == str(tmp_path / "kernels")
     finally:
         node.engine.stop()

@@ -121,7 +121,8 @@ def test_aot_roundtrip_matches_fresh_engine(weights, tmp_path):
     dst = GroundInferenceEngine(cfg, sd, threshold=THRESHOLD, bucket=BUCKET,
                                 device="cpu")
     dst.aot_load(path)
-    assert dst._graph == ((512, 4), None)       # no graphs on the CPU
+    assert dst._aot_shape == (512, 4)
+    assert dst.counts()["captures"] == 0        # no graphs on the CPU
     fresh = GroundInferenceEngine(cfg, sd, threshold=THRESHOLD,
                                   bucket=BUCKET, device="cpu")
     for scan in _scans(3, (300, 600)):          # 512 (recorded) and 768
@@ -131,35 +132,32 @@ def test_aot_roundtrip_matches_fresh_engine(weights, tmp_path):
 def test_aot_custom_shape_dispatch(weights, monkeypatch):
     """An artifact saved for a custom n dispatches on the shape it records,
     not the engine's default: scans of that padded shape go to the
-    captured graph, others to `run`.  The loader and the capture are
-    mocked (a CPU engine captures no graph)."""
+    engine's graph cache, as one scan of (1, 768, 4), others to `run`.
+    The loader and the cache are mocked (a CPU engine captures no
+    graph)."""
     _, cfg, sd, _ = weights
     eng = GroundInferenceEngine(cfg, sd, threshold=THRESHOLD, bucket=BUCKET,
                                 device="cpu")
     custom = tuple(eng._example_input(600).shape)          # (768, 4)
-    hits, captured = [], []
+    hits, graphs = [], eng._graphs
 
-    def fake_capture(shape):
-        captured.append(shape)
-
-        def graph(padded):
-            hits.append(tuple(padded.shape))
-            return eng.run(padded)
-        return graph
+    def cache(padded):
+        hits.append(tuple(padded.shape))
+        return graphs(padded)
 
     monkeypatch.setattr(compile_cache, "load_compiled",
                         lambda path, device: {"example_shape": list(custom),
                                               "transfer_dtype": "float32"})
-    monkeypatch.setattr(eng, "_capture", fake_capture)
+    monkeypatch.setattr(eng, "_graphs", cache)
     eng.aot_load("ignored.aot")
-    assert captured == [custom]
+    assert eng._aot_shape == custom and hits == []
     rng = np.random.default_rng(4)
     eng.infer(scene(rng, 600))                  # pads to 768: the graph
     eng.infer(scene(rng, 300))                  # pads to 512: run
     list(eng.infer_pipelined([scene(rng, 700), scene(rng, 100)]))
-    assert hits == [custom, custom]
+    assert hits == [(1, *custom)] * 2
     eng.warmup(600)                             # warmup stays eager
-    assert hits == [custom, custom]
+    assert hits == [(1, *custom)] * 2
 
     eng16 = GroundInferenceEngine(cfg, sd, threshold=THRESHOLD,
                                   bucket=BUCKET, transfer_dtype="int16",

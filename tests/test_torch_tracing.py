@@ -135,8 +135,8 @@ def test_engine_counts():
     engine.infer_many(scans, eager=True)
     engine.infer_many(scans[:2])
     assert engine.counts() == {"scans": 10, "replays": 0, "captures": 0,
-                               "eager_scans": 10, "staged": 6,
-                               "slot_allocs": 0, "pair_sorted": 0,
+                               "eager_scans": 10, "slot_allocs": 0,
+                               "pair_sorted": 0,
                                "readbacks": 4, "readback_allocs": 0}
 
 
@@ -246,8 +246,9 @@ def test_burst_fills_its_pinned_slot(dev):
     """A burst is padded straight into one pinned slot: two back-to-back
     bursts of one shape allocate it once and serve what `run_many` gives
     on the stack of `_prepare`'s padded scans; a burst waits on its slot's
-    last copy and records no staging copy, while a single scan through
-    `infer_pipelined` still records both under `upload`."""
+    last copy and records no `stage_copy`, while a single scan through
+    `infer_pipelined` records its slot's wait and its fill of the slot
+    (`stage_copy`) under `upload`."""
     cfg = _cfg()
     rng = np.random.default_rng(6)
     bursts = [[synthetic_scan(cfg, rng, n) for n in (POINTS, 500, 300)]
@@ -256,7 +257,7 @@ def test_burst_fills_its_pinned_slot(dev):
                                    device=dev)
     served = [engine.infer_many(b) for b in bursts[:2]]
     counts = engine.counts()
-    assert counts["slot_allocs"] == 1 and counts["staged"] == 6
+    assert counts["slot_allocs"] == 1 and counts["scans"] == 6
     for burst, answers in zip(bursts, served):
         stack = torch.from_numpy(np.stack(
             [engine._prepare(s)[0] for s in burst])).to(dev)

@@ -389,7 +389,7 @@ def test_cpu_programs_run_eagerly():
     for (a, b), (c, d) in zip(engine.infer_many(scans),
                               engine.infer_many(scans, eager=True)):
         assert np.array_equal(a, c) and np.array_equal(b, d)
-    assert engine._many.replays == 0 and engine._many.eager_calls == 1
+    assert engine._graphs.replays == 0 and engine._graphs.eager_calls == 1
     pts, labels = _labelled(rng, cfg)
     program = evaluate.batch_rmse_program(engine.model)
     assert isinstance(program, GraphCache)
