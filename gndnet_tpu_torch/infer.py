@@ -13,9 +13,10 @@ engine runs on the card unless the caller passes device='cpu'.
 On the card a scan goes host -> pinned ring slot -> device on a copy stream,
 and the compute stream waits on the copy's event, so copies overlap the
 previous scans' compute; a single scan, like a burst's scans, is padded
-straight into its pinned slot (`_fill`), which goes up whole.  A single
-scan's answer comes back into a pinned readback slot behind that scan's
-own event, so fetching it does not wait for the scans submitted after it.
+straight into its pinned slot (`_fill`; a burst's scans on several host
+threads), which goes up whole.  A single scan's answer comes back into a
+pinned readback slot behind that scan's own event, so fetching it does
+not wait for the scans submitted after it.
 Where the JAX engine dispatches one compiled XLA executable a scan, the
 port launches each operation of `run` from Python, and keeps its CUDA
 graphs in one `GraphCache` of `run_many`: `infer_many` replays one per
@@ -26,7 +27,9 @@ shape is one graph replay.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import os
 import threading
 import time
 import traceback
@@ -45,6 +48,21 @@ from gndnet_tpu_torch.utils.profiling import span
 
 _PAD_SENTINEL = 1e9  # pads bin far out of range -> seg label -1, no pillar
 PIPELINE_DEPTH = 3   # infer_pipelined's default depth and the ring's slots
+
+_fill_pool = None    # the burst fills' threads, made at the first split fill
+_fill_pool_lock = threading.Lock()
+
+
+def _fill_threads() -> concurrent.futures.ThreadPoolExecutor:
+    """The process's pool of `gndnet-fill` threads, made at its first use:
+    a burst's caller shares its fill with them, never with PyTorch's
+    intra-op pool."""
+    global _fill_pool
+    with _fill_pool_lock:
+        if _fill_pool is None:
+            _fill_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=os.cpu_count(), thread_name_prefix="gndnet-fill")
+        return _fill_pool
 
 
 class _HostRing:
@@ -195,7 +213,9 @@ class GroundInferenceEngine:
     copies into a pinned slot), then `gndnet.engine.fetch` (the wait for
     that scan's copies alone and the copy out of its slot).  A burst fills
     its slot under `stack` and sends it under `upload`: `prepare`,
-    `slot_wait`, `stack`, `upload`, `dispatch`; no `stage_copy`.
+    `slot_wait`, `stack`, `upload`, `dispatch`; no `stage_copy`.  `stack`
+    is the burst's fill, which the caller shares with `gndnet-fill`
+    threads where the process may run on four cores or more.
     `counts()` gives what the engine served.
     """
 
@@ -239,7 +259,7 @@ class GroundInferenceEngine:
         self._graphs = GraphCache(self.run_many)
         self._aot_shape = None  # the (Np, k) of a scan that replays
         self._counted = {"scans": 0, "eager_scans": 0, "pair_sorted": 0,
-                         "readbacks": 0}
+                         "readbacks": 0, "parallel_fills": 0}
         self._count_lock = threading.Lock()
 
     def _count(self, key: str, k: int) -> None:
@@ -259,7 +279,9 @@ class GroundInferenceEngine:
         single-scan answers fetched through `_read_back` (`infer`,
         `infer_pipelined`, `warmup`), and `readback_allocs`, the pinned
         readback slots allocated (0 on a CPU engine; d in a stream of one
-        shape at depth d)."""
+        shape at depth d); `parallel_fills`, the bursts whose fill was
+        shared by more than one thread (`_fill_rows`: every burst where the
+        process may run on four cores or more, never a single scan)."""
         rings = [r for r in (self._ring, self._burst_ring) if r is not None]
         return {"scans": self._counted["scans"],
                 "replays": self._graphs.replays,
@@ -269,7 +291,8 @@ class GroundInferenceEngine:
                 "pair_sorted": self._counted["pair_sorted"],
                 "readbacks": self._counted["readbacks"],
                 "readback_allocs": (self._readback.allocs
-                                    if self._readback is not None else 0)}
+                                    if self._readback is not None else 0),
+                "parallel_fills": self._counted["parallel_fills"]}
 
     def _sorts_pairs(self, k: int, n: int) -> bool:
         """Whether a call of k scans padded to n points sorts its (cell,
@@ -321,24 +344,58 @@ class GroundInferenceEngine:
     def _stage(self, ring, scans: list, shape: tuple, fill: str,
                send: str | None = None) -> torch.Tensor:
         """Acquire the next slot of `ring`, of `shape` ((Np, k) for one
-        scan, (K, Np, k) for a burst), `_fill` the float32 `scans` into it
-        inside the span `fill`, and send it, inside the span `send` where
-        one is named: the scans on the engine's device, ready on the
-        current stream.  A fill that raises gives the slot back unsent.  A
-        CPU engine (no ring) fills an `np.empty` and serves it as it is."""
+        scan, (K, Np, k) for a burst), fill the float32 `scans` into it
+        inside the span `fill` (`_fill_rows`), and send it, inside the span
+        `send` where one is named: the scans on the engine's device, ready
+        on the current stream.  A fill that raises gives the slot back
+        unsent, once nothing writes into it.  A CPU engine (no ring) fills
+        an `np.empty` and serves it as it is."""
         dtype = self.transfer_dtype
         out = (np.empty(shape, dtype) if ring is None
                else ring.acquire(shape, getattr(torch, dtype)).numpy())
         try:
             with span(fill):
-                for points, row in zip(scans, out.reshape(-1, *shape[-2:])):
-                    self._fill(points, row)
+                self._fill_rows(scans, out.reshape(-1, *shape[-2:]))
         except BaseException:
             if ring is not None:
                 ring.release()
             raise
         with span(send) if send else contextlib.nullcontext():
             return torch.from_numpy(out) if ring is None else ring.send()
+
+    def _fill_rows(self, scans: list, rows: np.ndarray) -> None:
+        """`_fill` scan i into rows[i].  A burst, on a process that may run
+        on four cores or more, is shared by W = min(K, cores // 2) threads:
+        the caller and W - 1 fill threads (`_fill_threads`), each taking the
+        next whole scan until none is left, so a thread that starts late
+        fills fewer; the caller then waits for them all.  Half the cores:
+        the copy is bound by the host's memory bandwidth, which four
+        threads use up on an 8-core H100 host, and each further thread only
+        adds GIL hand-overs (each numpy call of a fill gives the GIL up and
+        takes it back).  A single scan, or fewer cores, fills on the
+        caller's thread.  An exception is raised only once every thread has
+        stopped writing."""
+        workers = (min(len(scans), len(os.sched_getaffinity(0)) // 2)
+                   if len(scans) > 1 else 1)
+        order = iter(range(len(scans)))     # each next() hands out one scan
+
+        def fill_some() -> None:
+            for i in order:
+                self._fill(scans[i], rows[i])
+
+        if workers < 2:
+            fill_some()
+            return
+        pool, tasks = _fill_threads(), []
+        try:
+            for _ in range(workers - 1):
+                tasks.append(pool.submit(fill_some))
+            fill_some()
+        finally:
+            concurrent.futures.wait(tasks)
+        for task in tasks:
+            task.result()
+        self._count("parallel_fills", 1)
 
     def _upload(self, points: np.ndarray) -> torch.Tensor:
         """A float32 scan padded into the next slot of the single-scan ring
@@ -465,12 +522,13 @@ class GroundInferenceEngine:
     def infer_many(self, scans, eager: bool = False) -> list:
         """Batched inference of a burst of scans in one device call: all
         scans must fall into one padded bucket.  Each scan is padded
-        straight into the burst's pinned slot, the slot goes up whole, and
-        on a CUDA engine a burst of K scans replays the CUDA graph of
-        `run_many` for its (K, bucket) shape, captured at the first such
-        burst (`eager=True` runs `run_many` eagerly instead).  Returns
-        [(elevation (ny, nx) np.float32, labels (N_i,) np.int8), ...] in
-        submission order."""
+        straight into the burst's pinned slot (`_fill_rows`: on several
+        threads where the process may run on four cores or more), the slot
+        goes up whole, and on a CUDA engine a burst of K scans replays the
+        CUDA graph of `run_many` for its (K, bucket) shape, captured at the
+        first such burst (`eager=True` runs `run_many` eagerly instead).
+        Returns [(elevation (ny, nx) np.float32, labels (N_i,) np.int8),
+        ...] in submission order."""
         with span("gndnet.engine.submit"):
             with span("gndnet.engine.prepare"):
                 scans = [np.asarray(s, np.float32) for s in scans]

@@ -967,6 +967,37 @@ def test_infer_many_graph_matches_eager(dev):
     assert eng._graphs.replays == 3 and len(eng._graphs.graphs) == 2
 
 
+def test_infer_many_burst16_fills_on_threads(dev):
+    """A burst of 16 kitti_sem scans of 100 000 points, its fill shared
+    with the fill threads: the pinned slot holds `_prepare`'s bytes, the
+    replayed answers equal the eager path's, one slot serves every burst,
+    and each burst counts a parallel fill on a host of four cores or
+    more."""
+    import os
+
+    from gndnet_tpu_torch.config import kitti_sem_config
+    cfg = kitti_sem_config().replace(fused_impl="affine",
+                                     compute_dtype="float32",
+                                     matmul_precision="highest")
+    eng = GroundInferenceEngine(cfg, init_state_dict(cfg, seed=0))
+    rng = np.random.default_rng(9)
+    scans = [synthetic_scan(cfg, rng, 100_000) for _ in range(16)]
+    want = np.stack([eng._prepare(s)[0] for s in scans])
+    with no_tf32(True):
+        eng.infer_many(scans)                       # captured, replayed once
+        got = eng.infer_many(scans)
+        stack = eng._burst_ring.slots[0][0].numpy()
+        assert stack.shape == want.shape and stack.tobytes() == want.tobytes()
+        eager = eng.infer_many(scans, eager=True)
+    for (a, b), (c, d) in zip(got, eager):
+        assert np.array_equal(a, c) and np.array_equal(b, d)
+    counts = eng.counts()
+    assert counts["replays"] == 2 and counts["captures"] == 1
+    assert counts["slot_allocs"] == 1
+    assert counts["parallel_fills"] == (
+        3 if len(os.sched_getaffinity(0)) >= 4 else 0)
+
+
 def test_host_ring_holds_a_slot_from_acquire_to_send(dev):
     """Threads that acquire, fill and send slots of one ring (some giving
     theirs back unsent) each get their own values on the device: no slot

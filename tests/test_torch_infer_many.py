@@ -2,6 +2,10 @@
 the JAX engine's, on the 16x16 affine config of test_torch_infer.py
 (float32, 'highest')."""
 
+import os
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +83,10 @@ FILL_CASES = {
     "int16_on_the_boundary": ("int16", None, 4, (BUCKET, 100)),
     "float32_mixed": ("float32", None, 4, (BUCKET, BUCKET + 1)),
     "int16_mixed": ("int16", 3, 3, (600, 1500)),
+    "float32_burst16": ("float32", None, 4,
+                        (BUCKET + 1, 2 * BUCKET, *range(1100, 1996, 64))),
+    "int16_k3_burst16": ("int16", 3, 4,
+                         (BUCKET - 1, BUCKET, *range(100, 996, 64))),
 }
 
 
@@ -104,9 +112,11 @@ def test_infer_many_fills_the_stack_prepare_gives(engines, monkeypatch,
     through `infer_many` (their np.stack) and single scans through
     `infer_pipelined`, in both transfer types, with fewer columns shipped
     than the config has, scans of fewer or more columns than shipped, and
-    lengths on a bucket's boundary.  `_fill` writes each scan once; a
-    burst over two buckets raises before it writes a row, while single
-    scans of two buckets are served each in its own."""
+    lengths on a bucket's boundary, in bursts of 2, 3 and 16.  `_fill`
+    writes each scan once, a burst's on several threads where the process
+    may run on more than one core; a burst over two buckets raises before
+    it writes a row, while single scans of two buckets are served each in
+    its own."""
     transfer_dtype, k, columns, sizes = FILL_CASES[case]
     jeng, teng = engines
     oracle = JaxEngine(jeng.cfg, jeng._variables, threshold=THRESHOLD,
@@ -149,6 +159,116 @@ def test_infer_many_fills_the_stack_prepare_gives(engines, monkeypatch,
         assert stack.tobytes() == w.tobytes()
     assert len(fills) == len(scans) == eng.counts()["scans"]
     assert [labels.shape for _, labels in got] == [(n,) for n in sizes]
+    split = path == "burst" and len(os.sched_getaffinity(0)) >= 4
+    assert eng.counts()["parallel_fills"] == int(split)
+
+
+def _engine(engines):
+    _, teng = engines
+    return GroundInferenceEngine(teng.cfg, teng.model.state_dict(),
+                                 threshold=THRESHOLD, bucket=BUCKET,
+                                 device="cpu")
+
+
+@pytest.mark.parametrize("call,k,one_core", [
+    ("infer", 1, False), ("infer_many", 1, False), ("infer_many", 2, False),
+    ("infer_many", 16, False), ("infer_many", 16, True)])
+def test_fill_threads(engines, monkeypatch, call, k, one_core):
+    """A single scan (`infer`, a burst of one) fills on the caller's
+    thread; a burst on a process that may run on four cores or more is
+    shared by the caller and `gndnet-fill` threads, min(K, cores // 2) in
+    all, each scan filled once, and fills on the caller's thread where the
+    process may run on one.  PyTorch's thread count stays as it was."""
+    if one_core:
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0})
+    eng = _engine(engines)
+    threads, fill = [], eng._fill
+
+    def recorded_fill(points, out):
+        threads.append((threading.get_ident(),
+                        threading.current_thread().name))
+        fill(points, out)
+
+    monkeypatch.setattr(eng, "_fill", recorded_fill)
+    scans = _scans(7, [600 + 20 * i for i in range(k)])
+    torch_threads = torch.get_num_threads()
+    if call == "infer":
+        eng.infer(scans[0])
+    else:
+        eng.infer_many(scans, eager=True)
+    assert len(threads) == k
+    workers = min(k, len(os.sched_getaffinity(0)) // 2)
+    caller = threading.get_ident()
+    if k == 1 or workers < 2:
+        assert {t for t, _ in threads} == {caller}
+        assert eng.counts()["parallel_fills"] == 0
+    else:
+        assert all(t == caller or name.startswith("gndnet-fill")
+                   for t, name in threads)
+        assert len({t for t, _ in threads}) <= workers
+        assert eng.counts()["parallel_fills"] == 1
+    assert torch.get_num_threads() == torch_threads
+
+
+class _HeldRing:
+    """A host ring for a CPU engine that records when a slot is given back
+    unsent."""
+
+    allocs = 0
+
+    def __init__(self):
+        self.released, self.sent = [], 0
+
+    def acquire(self, shape, dtype):
+        self.host = torch.empty(shape, dtype=dtype)
+        return self.host
+
+    def release(self):
+        self.released.append(time.perf_counter())
+
+    def send(self):
+        self.sent += 1
+        return self.host.clone()
+
+
+@pytest.mark.parametrize("k,bad", [(2, 0), (16, 0), (16, 15), (16, 6)])
+def test_failing_fill_waits_for_the_burst(engines, monkeypatch, k, bad):
+    """A `_fill` that raises on one scan of a burst: its exception reaches
+    the caller, the slot is given back only after every fill has ended (no
+    fill starts or ends after it), nothing is counted, and the next burst
+    on the engine is served as if none had failed."""
+    eng = _engine(engines)
+    ring = eng._burst_ring = _HeldRing()
+    fill, sizes, stamps = eng._fill, [600 + 20 * i for i in range(k)], []
+
+    def slow_fill(points, out):
+        stamps.append(time.perf_counter())
+        try:
+            if points.shape[0] == sizes[bad]:
+                raise RuntimeError("fill failed")
+            time.sleep(0.05)
+            fill(points, out)
+        finally:
+            stamps.append(time.perf_counter())
+
+    scans = _scans(8, sizes)
+    monkeypatch.setattr(eng, "_fill", slow_fill)
+    before = eng.counts()
+    with pytest.raises(RuntimeError, match="fill failed"):
+        eng.infer_many(scans, eager=True)
+    time.sleep(0.2)
+    assert len(ring.released) == 1 and ring.sent == 0
+    assert stamps and max(stamps) < ring.released[0]
+    assert eng.counts() == before
+    monkeypatch.setattr(eng, "_fill", fill)
+    got = eng.infer_many(scans, eager=True)
+    want = eng.run_many(torch.from_numpy(
+        np.stack([eng._prepare(s)[0] for s in scans])))
+    assert len(ring.released) == 1 and ring.sent == 1
+    for (elev, labels), e, l, n in zip(got, *want, sizes):
+        np.testing.assert_array_equal(elev, e.numpy())
+        np.testing.assert_array_equal(labels, l[:n].numpy())
+    assert eng.counts()["scans"] == before["scans"] + k
 
 
 def test_infer_many_rejects_mixed_buckets(engines):

@@ -10,6 +10,7 @@ This file imports no JAX, so it runs there as it is.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -124,7 +125,9 @@ def test_span_recorded_and_nested(recorded, entry, span, parent, count):
 
 def test_engine_counts():
     """What the engine served, counted where the work happens: a CPU
-    engine has no graph, so every scan runs eagerly."""
+    engine has no graph, so every scan runs eagerly; each burst's fill is
+    shared by several threads where the process may run on four cores or
+    more."""
     cfg = _cfg()
     rng = np.random.default_rng(2)
     scans = [synthetic_scan(cfg, rng, POINTS) for _ in range(4)]
@@ -134,10 +137,12 @@ def test_engine_counts():
     list(engine.infer_pipelined(scans[:3], 2))
     engine.infer_many(scans, eager=True)
     engine.infer_many(scans[:2])
+    cores = len(os.sched_getaffinity(0))
     assert engine.counts() == {"scans": 10, "replays": 0, "captures": 0,
                                "eager_scans": 10, "slot_allocs": 0,
                                "pair_sorted": 0,
-                               "readbacks": 4, "readback_allocs": 0}
+                               "readbacks": 4, "readback_allocs": 0,
+                               "parallel_fills": 2 if cores >= 4 else 0}
 
 
 def test_trace_file_holds_the_spans(tmp_path):
